@@ -1,0 +1,148 @@
+// K1: fused cost + MGM recursion, one scan direction.
+//
+// Replaces the TPU kernel mgm_tpu/ops/pallas_fused.py:_kernel (launched
+// by fused_wavefront, pallas_fused.py:1057).  It computes the same
+// thing: for every front t of a skewed schedule (pixel (r, col) of a
+// plane lies on front t = col + a0 - ssgn*slope*r), the AD/SD cost of
+// each label in flight from the two images, the 1-4 coupled SGM messages
+// from the fronts t -+ lag, the update_cost2 quirk, the 1-pixel border
+// rule, the optional kappa*CC overcount fold and the backward launch's
+// accumulation onto the forward launch's output.
+//
+// What is not carried over is the TPU's blocking: the VMEM ring buffer,
+// the DMA semaphores and the skewed image copies.  The kernel indexes
+// the unskewed images directly and writes the image-layout volume
+// (Mp, R, C, L).  The recursion state of one front (Ml x R x L floats,
+// 1.2 MB at the 700x500, L=151 main path) does not fit one SM's shared
+// memory, so the last D fronts live in a global ring (hist/mins) that
+// the 50 MB L2 holds.  Fronts synchronise by kernel boundaries: the C
+// entry point launches one small kernel per front on the caller's
+// stream (T = C + slope*(R-1) launches per direction).
+//
+// Bound: the chain of T dependent launches (launch latency and the
+// short per-front work), plus one write (forward) or read-modify-write
+// (backward) of the (Mp, R, C, L) float volume.  One block per
+// (row, plane) with one thread per label keeps every label reduction
+// (the all-invalid test, the per-pixel minimum) inside a block.
+//
+// Numerics follow the plain PyTorch version in cuda_fused.py operation
+// for operation: build with --fmad=false and without fast math, so
+// o + kappa*cc is not contracted and inf/NaN behave as IEEE says.
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "mgm_kernels.h"
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__global__ void front_kernel(const WaveParams p, int t, int slot_t) {
+  __shared__ float red[32];
+  const int r = blockIdx.x;
+  const int i = blockIdx.y;
+  const int l = threadIdx.x;
+  const int col = t - p.plane_a0[i] + p.plane_ssgn[i] * p.slope * r;
+  if (col < 0 || col >= p.C) return;  // the whole block leaves together
+  const bool act = l < p.L;
+  const int n = p.plane_side[i];
+
+  // ---- raw cost of this label, then truncation (pallas_fused.py:857)
+  float e = p.tmax;
+  const int q = col + p.plane_gmin[i] + l;  // right-image column
+  if (act && q >= 0 && q < p.C) {
+    const float* u = p.left + (((size_t)n * p.R + r) * p.C + col) * p.nch;
+    const float* v = p.right + (((size_t)n * p.R + r) * p.C + q) * p.nch;
+    float raw = 0.f;
+    for (int ch = 0; ch < p.nch; ++ch) {
+      float d = fabsf(u[ch] - v[ch]);
+      if (p.sd) d = d * d;
+      raw = ch ? raw + d : d;
+    }
+    e = raw > p.tmax ? p.tmax : raw;  // min that keeps a NaN, like jnp
+  }
+  const bool in_win = act && l >= p.plane_lo[i] && l <= p.plane_hi[i];
+  // all-invalid window -> 0 (mgm_costvolume.h:410-421)
+  if (!__syncthreads_or(in_win && e < INFINITY)) e = 0.f;
+  const float cc = in_win ? e : INFINITY;
+
+  const int nrec = p.plane_nrec[i];
+  float sum = 0.f;
+  for (int k = 0; k < nrec; ++k) {
+    const int m = p.plane_recs[i][k];
+    const int b = p.rec_border[m];
+    bool interior = col >= ((b & 1) ? 1 : 0);
+    if (b & 2) interior = interior && col <= p.C - 2;
+    if (b & 4) interior = interior && r >= 1;
+    if (b & 8) interior = interior && r <= p.R - 2;
+    float nv = cc;
+    // interior pixels read only neighbours inside the image, which
+    // earlier fronts wrote; the others keep their cost (the select of
+    // pallas_fused.py:932, never a multiply by a mask)
+    if (interior && act) {
+      float msum = 0.f, first = 0.f;
+      for (int j = 0; j < p.mgm; ++j) {
+        const int ci = p.rec_ranks[m][j];
+        const int lag = p.combo_lag[ci];
+        const int tt = p.reverse ? t + lag : t - lag;
+        const int slot = tt % (p.D + 1);
+        const int rr = r - p.combo_roll[ci];
+        const size_t row = ((size_t)slot * p.Ml + m) * p.R + rr;
+        const float* h = p.hist + row * p.L;
+        const float mk = p.mins[row];
+        const float lk = h[l];
+        const float lm = l > 0 ? h[l - 1] : INFINITY;
+        const float lp = l < p.L - 1 ? h[l + 1] : INFINITY;
+        // min(Lk, min(Lk[l-1], Lk[l+1]) + P1, mk + P2) - mk
+        const float msg = fminf(fminf(lk, fminf(lm, lp) + p.p1),
+                                mk + p.p2) - mk;
+        if (j == 0) first = msg;
+        else if (j == 1 && p.mgm == 2) msum = first * 0.5f + msg * 0.5f;
+        if (p.mgm != 2) msum = j ? msum + msg : msg;
+      }
+      if (p.mgm > 2) msum = msum / (float)p.mgm;
+      nv = cc + msum;
+    }
+    const size_t hrow = ((size_t)slot_t * p.Ml + m) * p.R + r;
+    if (act) p.hist[hrow * p.L + l] = nv;
+    // minimum over all labels of the new front, for the next fronts
+    float mv = warp_min(act ? nv : INFINITY);
+    if ((l & 31) == 0) red[l >> 5] = mv;
+    __syncthreads();
+    if (l == 0) {
+      for (int w = 1; w < (int)(blockDim.x >> 5); ++w) mv = fminf(mv, red[w]);
+      p.mins[hrow] = mv;
+    }
+    __syncthreads();
+    sum = k ? sum + nv : nv;
+  }
+  if (!act) return;
+  float o = nrec ? sum : 0.f;
+  if (p.plane_fold[i]) o = o + p.kappa * cc;
+  float* dst = p.out + (((size_t)i * p.R + r) * p.C + col) * p.L + l;
+  *dst = p.accumulate ? *dst + o : o;
+}
+
+extern "C" int mgm_wave_params_size(void) { return (int)sizeof(WaveParams); }
+
+// Runs every front of one scan direction on `stream`; returns the first
+// CUDA error (0 when all launches were accepted).
+extern "C" int mgm_fused_wavefront(const WaveParams* params, void* stream) {
+  const WaveParams p = *params;
+  if (p.L < 1 || p.L > MGM_MAX_LABELS || p.Mp > MGM_MAX_PLANES ||
+      p.Ml > MGM_MAX_RECS || p.mgm < 1 || p.mgm > MGM_MAX_RANKS)
+    return (int)cudaErrorInvalidValue;
+  const int T = p.C + p.slope * (p.R - 1);
+  const dim3 grid(p.R, p.Mp);
+  const int threads = (p.L + 31) / 32 * 32;
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int k = 0; k < T; ++k) {
+    const int t = p.reverse ? T - 1 - k : k;
+    front_kernel<<<grid, threads, 0, s>>>(p, t, t % (p.D + 1));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}

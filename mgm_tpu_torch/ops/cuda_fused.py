@@ -1,0 +1,336 @@
+"""The fused path's two kernels (counterpart of mgm_tpu/ops/pallas_fused.py).
+
+For each kernel this module holds the ctypes binding, the wrapper, the
+plain PyTorch version and a launch counter:
+
+  K1 `fused_wavefront` (csrc/fused_wavefront.cu) replaces
+     pallas_fused._kernel: one scan direction of the fused cost + MGM
+     recursion over every (side x space) plane of a launch.
+  K2 `wta` (csrc/wta.cu) replaces pallas_fused._wta_kernel: the sum of
+     the spaces and the windowed winner-take-all.
+
+A wrapper runs the plain version only because its tensors lie on the
+CPU; on CUDA tensors it launches the kernel or raises.  `launches`
+counts kernel launches (never plain runs), so a run can show that its
+main path went through the kernels.
+
+Layouts differ from the TPU's: images stay unskewed, (N, R, C, nch)
+per side, and K1 writes the image-layout volume (Mp, R, C, L), plane
+i = space_index * N + side.  Pixel (r, col) of a plane lies on front
+t = col + a0 - ssgn*slope*r (space A: a0 = 0, ssgn = -1; space B:
+a0 = slope*(R-1), ssgn = +1), so the front count is C + slope*(R-1).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .common import INF, shift_fill
+
+# the limits of csrc/mgm_kernels.h
+MAX_PLANES, MAX_RECS, MAX_COMBOS, MAX_RANKS = 8, 32, 16, 4
+MAX_SIDES, MAX_LABELS = 16, 1024
+
+
+class _WaveParams(ctypes.Structure):
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in ("left", "right", "out", "hist",
+                                        "mins")]
+        + [(f, ctypes.c_int) for f in ("R", "C", "L", "nch", "Mp", "Ml",
+                                       "D", "slope", "mgm", "sd",
+                                       "accumulate", "reverse")]
+        + [(f, ctypes.c_float) for f in ("tmax", "p1", "p2", "kappa")]
+        + [(f, ctypes.c_int * MAX_PLANES)
+           for f in ("plane_side", "plane_gmin", "plane_lo", "plane_hi",
+                     "plane_a0", "plane_ssgn", "plane_fold", "plane_nrec")]
+        + [("plane_recs", (ctypes.c_int * MAX_RECS) * MAX_PLANES),
+           ("rec_ranks", (ctypes.c_int * MAX_RANKS) * MAX_RECS),
+           ("rec_border", ctypes.c_int * MAX_RECS),
+           ("combo_lag", ctypes.c_int * MAX_COMBOS),
+           ("combo_roll", ctypes.c_int * MAX_COMBOS)])
+
+
+class _WtaParams(ctypes.Structure):
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in ("vol", "disp", "cost")]
+        + [(f, ctypes.c_int) for f in ("N", "nspaces", "R", "C", "L")]
+        + [(f, ctypes.c_int * MAX_SIDES)
+           for f in ("side_gmin", "side_lo", "side_hi")])
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel library with its entry points typed and the parameter
+    structs checked against the C layout."""
+    lib = _build.load()
+    for name, size_name, struct in (
+            ("mgm_fused_wavefront", "mgm_wave_params_size", _WaveParams),
+            ("mgm_wta", "mgm_wta_params_size", _WtaParams)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        size = getattr(lib, size_name)
+        size.restype = ctypes.c_int
+        if size() != ctypes.sizeof(struct):
+            raise RuntimeError(f"{name}: C struct is {size()} bytes, the "
+                               f"ctypes mirror {ctypes.sizeof(struct)}")
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+    if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.device != device):
+        raise ValueError(f"{name}: want a contiguous float32 {shape} tensor "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------- K1 ----
+
+def _valid_rows(t: int, a0: int, ssgn: int, slope: int, C: int, R: int):
+    """[r0, r1) rows whose pixel on front t lies inside the image:
+    0 <= t - a0 + ssgn*slope*r < C."""
+    base = t - a0
+    if ssgn < 0:   # col = base - slope*r
+        r0, r1 = -((C - 1 - base) // slope), base // slope + 1
+    else:          # col = base + slope*r
+        r0, r1 = -(base // slope), (C - 1 - base) // slope + 1
+    return max(r0, 0), min(r1, R)
+
+
+def fused_wavefront_plain(left, right, acc, *, planes, mspecs, combos, L,
+                          slope, mgm, mode, tmax, p1, p2, kappa, reverse):
+    """Plain PyTorch version of K1: a loop over fronts with tensor ops
+    over (planes or recursions, R, L), in the fused kernel's order of
+    operations (pallas_fused.py:834-949), not the dense solver's.
+
+    left/right: (N, R, C, nch) float32 images per side.
+    acc: None (forward launch) or the forward output to add onto.
+    planes: (side, gmin, lo, hi, a0, ssgn, fold) per output plane.
+    mspecs: (plane, ranks, border) per recursion; ranks index `combos`,
+      border = (need_left, need_right, need_top, need_bottom).
+    combos: (lag, roll) per distinct message source: the front t -+ lag,
+      row r - roll.
+    Returns the (Mp, R, C, L) volume (acc itself when given)."""
+    dev = left.device
+    _, R, C, nch = left.shape
+    Mp, Ml = len(planes), len(mspecs)
+    D = max(lag for lag, _ in combos)
+    T = C + slope * (R - 1)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = acc if acc is not None else torch.empty((Mp, R, C, L), **f32)
+
+    def field(k):
+        """Field k of every plane as an int64 tensor."""
+        return torch.tensor([p[k] for p in planes], device=dev)
+
+    side = field(0)
+    gmin, lo, hi = (field(k)[:, None, None] for k in (1, 2, 3))
+    a0, ssgn = field(4)[:, None], field(5)[:, None]
+    U, V = left[side], right[side]                 # (Mp, R, C, nch)
+    rows = torch.arange(R, device=dev)
+    lab = torch.arange(L, device=dev)
+    in_win = (lab >= lo) & (lab <= hi)             # (Mp, 1, L)
+    pidx = torch.arange(Mp, device=dev)[:, None]
+    # a true division (a 0-dim tensor on the device: CUDA would turn a
+    # division by a Python number into a reciprocal multiply)
+    mgm_div = torch.tensor(float(mgm), **f32)
+    hist = [(torch.full((Ml, R, L), INF, **f32),
+             torch.full((Ml, R), INF, **f32))] * D
+
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        col = t - a0 + ssgn * slope * rows          # (Mp, R)
+        valid = (col >= 0) & (col < C)
+        u_t = U[pidx, rows, col.clamp(0, C - 1)]    # (Mp, R, nch)
+        q = col[..., None] + gmin + lab             # (Mp, R, L)
+        v_t = V[pidx[..., None], rows[:, None], q.clamp(0, C - 1)]
+        raw = None
+        for c in range(nch):
+            d = (u_t[..., c, None] - v_t[..., c]).abs()
+            if mode == "sd":
+                d = d * d
+            raw = d if raw is None else raw + d
+        e = torch.where((q >= 0) & (q < C), raw.clamp(max=tmax), tmax)
+        # all-invalid window -> 0 (mgm_costvolume.h:410-421)
+        anyfin = (in_win & (e < INF)).any(-1, keepdim=True)
+        e = torch.where(anyfin, e, 0.0)
+        cc = torch.where(in_win & valid[..., None], e, INF)
+
+        msgs = []
+        for lag, roll in combos:
+            f, mn = hist[lag - 1]
+            if roll:
+                f = shift_fill(f, roll, 1, INF)
+                mn = shift_fill(mn, roll, 1, INF)
+            mk = mn[..., None]
+            nb = torch.minimum(shift_fill(f, 1, -1, INF),
+                               shift_fill(f, -1, -1, INF)) + p1
+            msgs.append(torch.minimum(torch.minimum(f, nb), mk + p2) - mk)
+
+        news = []
+        sums = [None] * Mp
+        for m, (pi, ranks, border) in enumerate(mspecs):
+            if mgm == 2:
+                # update_cost2 halves each term (mgm_core.cc:83-84)
+                em = msgs[ranks[0]][m] * 0.5 + msgs[ranks[1]][m] * 0.5
+            else:
+                em = msgs[ranks[0]][m]
+                for k in range(1, mgm):
+                    em = em + msgs[ranks[k]][m]
+                if mgm > 1:
+                    em = em / mgm_div
+            need_l, need_r, need_t, need_b = border
+            ci = col[pi]
+            interior = (ci >= (1 if need_l else 0)) & (ci < C)
+            if need_r:
+                interior &= ci <= C - 2
+            if need_t:
+                interior &= rows >= 1
+            if need_b:
+                interior &= rows <= R - 2
+            # a select, never a multiply by the mask: messages at the
+            # border are inf - inf = NaN
+            new_m = torch.where(interior[:, None], cc[pi] + em, cc[pi])
+            news.append(new_m)
+            sums[pi] = new_m if sums[pi] is None else sums[pi] + new_m
+
+        for i, (_, _, _, _, pa0, pss, fold) in enumerate(planes):
+            r0, r1 = _valid_rows(t, pa0, pss, slope, C, R)
+            if r0 >= r1:
+                continue
+            o = sums[i] if sums[i] is not None else torch.zeros_like(cc[i])
+            if fold:
+                o = o + kappa * cc[i]
+            rr = rows[r0:r1]
+            cols = col[i, r0:r1]
+            o = o[r0:r1]
+            if acc is not None:
+                o = out[i, rr, cols] + o
+            out[i, rr, cols] = o
+        new = torch.stack(news)
+        hist = [(new, new.amin(-1))] + hist[:-1]
+    return out
+
+
+def fused_wavefront(left, right, acc, *, planes, mspecs, combos, L, slope,
+                    mgm, mode, tmax, p1, p2, kappa, reverse):
+    """K1: one scan direction of the fused recursion (arguments as in
+    fused_wavefront_plain).  CPU tensors take the plain version; CUDA
+    tensors launch csrc/fused_wavefront.cu, T front kernels on the
+    current stream."""
+    kw = dict(planes=planes, mspecs=mspecs, combos=combos, L=L, slope=slope,
+              mgm=mgm, mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
+              reverse=reverse)
+    dev = left.device
+    if dev.type == "cpu":
+        return fused_wavefront_plain(left, right, acc, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_wavefront: unsupported device {dev}")
+    N, R, C, nch = left.shape
+    Mp, Ml, nco = len(planes), len(mspecs), len(combos)
+    if (Mp > MAX_PLANES or Ml > MAX_RECS or nco > MAX_COMBOS
+            or not 1 <= mgm <= MAX_RANKS or not 1 <= L <= MAX_LABELS
+            or mode not in ("ad", "sd")):
+        raise ValueError(f"fused_wavefront: outside the kernel's limits "
+                         f"(planes {Mp}, recursions {Ml}, combos {nco}, "
+                         f"mgm {mgm}, L {L}, mode {mode!r})")
+    _check("left", left, (N, R, C, nch), dev)
+    _check("right", right, (N, R, C, nch), dev)
+    out = acc
+    if out is None:
+        out = torch.empty((Mp, R, C, L), dtype=torch.float32, device=dev)
+    _check("acc", out, (Mp, R, C, L), dev)
+    D = max(lag for lag, _ in combos)
+    hist = torch.empty((D + 1, Ml, R, L), dtype=torch.float32, device=dev)
+    mins = torch.empty((D + 1, Ml, R), dtype=torch.float32, device=dev)
+
+    p = _WaveParams(
+        left=left.data_ptr(), right=right.data_ptr(), out=out.data_ptr(),
+        hist=hist.data_ptr(), mins=mins.data_ptr(), R=R, C=C, L=L, nch=nch,
+        Mp=Mp, Ml=Ml, D=D, slope=slope, mgm=mgm, sd=int(mode == "sd"),
+        accumulate=int(acc is not None), reverse=int(reverse),
+        tmax=tmax, p1=p1, p2=p2, kappa=kappa)
+    for i, (side, gmin, lo, hi, a0, ssgn, fold) in enumerate(planes):
+        recs = [m for m, spec in enumerate(mspecs) if spec[0] == i]
+        p.plane_side[i], p.plane_gmin[i] = side, gmin
+        p.plane_lo[i], p.plane_hi[i] = lo, hi
+        p.plane_a0[i], p.plane_ssgn[i] = a0, ssgn
+        p.plane_fold[i], p.plane_nrec[i] = int(fold), len(recs)
+        for k, m in enumerate(recs):
+            p.plane_recs[i][k] = m
+    for m, (_, ranks, border) in enumerate(mspecs):
+        for k, ci in enumerate(ranks):
+            p.rec_ranks[m][k] = ci
+        p.rec_border[m] = sum(1 << b for b, need in enumerate(border)
+                              if need)
+    for k, (lag, roll) in enumerate(combos):
+        p.combo_lag[k], p.combo_roll[k] = lag, roll
+    err = _lib().mgm_fused_wavefront(ctypes.byref(p), _stream(dev))
+    if err:
+        raise RuntimeError(f"fused_wavefront: CUDA error {err}")
+    fused_wavefront.launches += 1
+    return out
+
+
+fused_wavefront.launches = 0
+
+
+# ---------------------------------------------------------------- K2 ----
+
+def wta_plain(vol, *, nspaces, sides):
+    """Plain PyTorch version of K2 (pallas_fused.py:211-227).
+
+    vol: (nspaces * N, R, C, L) space-major planes; sides: (gmin, lo, hi)
+    per side.  Returns (disp, cost), each (N, R, C) float32."""
+    N = len(sides)
+    L = vol.shape[-1]
+    lab = torch.arange(L, device=vol.device)
+    disps, costs = [], []
+    for n, (gmin, lo, hi) in enumerate(sides):
+        s = vol[n]
+        for si in range(1, nspaces):
+            s = s + vol[si * N + n]
+        ok = (lab >= lo) & (lab <= hi) & (s < INF) & (s > -INF)
+        cand = torch.where(ok, s, INF)
+        cost = cand.amin(-1)
+        idx = torch.where(cand == cost[..., None], lab, L).amin(-1)
+        disps.append((idx + gmin).to(torch.float32))
+        costs.append(cost)
+    return torch.stack(disps), torch.stack(costs)
+
+
+def wta(vol, *, nspaces, sides):
+    """K2: sum of the spaces + windowed WTA (arguments as in wta_plain).
+    CPU tensors take the plain version; CUDA tensors launch
+    csrc/wta.cu."""
+    dev = vol.device
+    if dev.type == "cpu":
+        return wta_plain(vol, nspaces=nspaces, sides=sides)
+    if dev.type != "cuda":
+        raise ValueError(f"wta: unsupported device {dev}")
+    N = len(sides)
+    if not 1 <= N <= MAX_SIDES or vol.ndim != 4:
+        raise ValueError(f"wta: {N} sides, volume {tuple(vol.shape)}")
+    _, R, C, L = vol.shape
+    _check("vol", vol, (nspaces * N, R, C, L), dev)
+    disp = torch.empty((N, R, C), dtype=torch.float32, device=dev)
+    cost = torch.empty((N, R, C), dtype=torch.float32, device=dev)
+    p = _WtaParams(vol=vol.data_ptr(), disp=disp.data_ptr(),
+                   cost=cost.data_ptr(), N=N, nspaces=nspaces, R=R, C=C, L=L)
+    for n, (gmin, lo, hi) in enumerate(sides):
+        p.side_gmin[n], p.side_lo[n], p.side_hi[n] = gmin, lo, hi
+    err = _lib().mgm_wta(ctypes.byref(p), _stream(dev))
+    if err:
+        raise RuntimeError(f"wta: CUDA error {err}")
+    wta.launches += 1
+    return disp, cost
+
+
+wta.launches = 0

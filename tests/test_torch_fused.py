@@ -1,0 +1,118 @@
+"""The port's fused solve against mgm_tpu.
+
+The scheduling must equal mgm_tpu's exactly.  The solve (the plain
+PyTorch versions of the two kernels on CPU) is held against
+mgm_tpu.solver.mgm_solve, the JAX package's dense XLA path.  The two
+sum in different orders (the fused path folds kappa*CC per space and
+sums the spaces A then B; docs/ARCHITECTURE.md "Numerical-parity
+policy"), so the rule of tests/test_fused.py applies: equal finite
+masks, costs within 3e-5 * scale, and disparities that differ only at
+argmin ties.  At TSGM = 1 every order is exact (min-plus over the
+integers of integer images): bitwise.
+
+The kernels against their plain versions are in test_torch_kernels.py,
+which needs no JAX and so runs on a machine with a card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mgm_tpu.ops import fused as jfused
+from mgm_tpu.ops.cost import build_cost_volume
+from mgm_tpu.solver import mgm_solve
+from mgm_tpu_torch.ops import fused as tfused
+
+from test_torch_kernels import _pair, _sides, assert_bitwise
+
+
+@pytest.mark.parametrize("ndir", range(1, 17))
+@pytest.mark.parametrize("mgm", range(1, 5))
+def test_split_passes_matches(ndir, mgm):
+    assert tfused.split_passes(ndir, mgm) == jfused.split_passes(ndir, mgm)
+    for p in range(ndir):
+        assert tfused.fused_spec(p, mgm) == jfused.fused_spec(p, mgm)
+
+
+def _dense(u, v, sides, L, *, ndir, mgm, mode, trunc, fix, p1, p2):
+    N = len(sides)
+    H, W = u.shape[:2]
+    lefts, rights = [u, v][:N], [v, u][:N]
+    lo = jnp.zeros((N, H, W), jnp.int32)
+    hi = jnp.full((N, H, W), L - 1, jnp.int32)
+    cc = jnp.stack([
+        build_cost_volume(jnp.asarray(lefts[n]), jnp.asarray(rights[n]),
+                          lo[n], hi[n], g, distance=mode, L=L,
+                          trunc_dist=trunc, backend="xla")
+        for n, (g, _, _) in enumerate(sides)])
+    gmins = jnp.asarray([g for g, _, _ in sides], jnp.int32)
+    S, d, c = mgm_solve(cc, None, lo, hi, lo, hi, gmins, p1=p1, p2=p2,
+                        ndir=ndir, mgm=mgm, use_fh=False, use_weights=False,
+                        per_pixel=False, fix_overcount=fix)
+    return np.asarray(S), np.asarray(d), np.asarray(c)
+
+
+CASES = [
+    dict(ndir=1, mgm=1), dict(ndir=1, mgm=1, lr=False),
+    dict(ndir=2, mgm=2), dict(ndir=4, mgm=1), dict(ndir=4, mgm=2),
+    dict(ndir=4, mgm=2, lr=False), dict(ndir=4, mgm=3, D=2),
+    dict(ndir=5, mgm=2, slope=2, D=3),        # slope 2
+    dict(ndir=2, mgm=4, slope=2, D=3),        # slope 2, four coupled deps
+    dict(ndir=8, mgm=1, D=2),
+    dict(ndir=4, mgm=2, fix=False), dict(ndir=4, mgm=1, fix=False),
+    dict(ndir=4, mgm=1, mode="sd"), dict(ndir=4, mgm=2, mode="sd"),
+    dict(ndir=4, mgm=2, trunc=20.0), dict(ndir=4, mgm=1, trunc=20.0),
+]
+
+
+@pytest.mark.parametrize("case", CASES,
+                         ids=[str(sorted(c.items())) for c in CASES])
+def test_plain_solve_matches_dense(rng, case):
+    kw = dict(lr=True, mode="ad", trunc=float("inf"), fix=True)
+    kw.update(case)
+    ndir, mgm = kw["ndir"], kw["mgm"]
+    # the schedule's slope and deepest front lag (D)
+    (slope, _, launches), = tfused.split_passes(ndir, mgm)[0]
+    assert slope == kw.get("slope", 1)
+    lags = [lag for _, ms in launches for *_, ranks, _ in ms
+            for lag, _ in ranks]
+    assert max(lags) == kw.get("D", 1)
+
+    H, W, C, dmin, dmax = 18, 29, 2, -6, 4
+    u, v = _pair(rng, H, W, C)
+    L, sides = _sides(dmin, dmax, kw["lr"])
+    p1, p2 = 8.0 * C, 32.0 * C
+    S0, d0, c0 = _dense(u, v, sides, L, ndir=ndir, mgm=mgm, mode=kw["mode"],
+                        trunc=kw["trunc"], fix=kw["fix"], p1=p1, p2=p2)
+    d1, c1 = tfused.mgm_solve_fused(
+        torch.from_numpy(u), torch.from_numpy(v), sides=sides, L=L,
+        ndir=ndir, mgm=mgm, p1=p1, p2=p2, mode=kw["mode"], nch=C,
+        trunc_dist=kw["trunc"], fix_overcount=kw["fix"])
+    d1, c1 = d1.numpy(), c1.numpy()
+    if mgm == 1:
+        assert_bitwise(d1, d0)
+        assert_bitwise(c1, c0)
+        return
+    np.testing.assert_array_equal(np.isfinite(c1), np.isfinite(c0))
+    f0 = np.isfinite(S0)
+    scale = max(1.0, np.abs(S0[f0]).max())
+    np.testing.assert_allclose(c1, c0, atol=3e-5 * scale, rtol=1e-5,
+                               equal_nan=True)
+    for n, y, x in np.argwhere(d0 != d1):
+        la = int(d0[n, y, x]) - sides[n][0]
+        lb = int(d1[n, y, x]) - sides[n][0]
+        assert abs(S0[n, y, x, la] - S0[n, y, x, lb]) <= 3e-5 * scale, \
+            f"non-tie disparity mismatch at {(n, y, x)}"
+
+
+@pytest.mark.parametrize("bad", [
+    dict(ndir=4, mgm=4), dict(ndir=8, mgm=2), dict(ndir=9, mgm=1),
+    dict(mode="census"), dict(use_fh=True),
+], ids=lambda c: str(sorted(c.items())))
+def test_unsupported_raise(bad):
+    """What the slice leaves out raises, naming the ROADMAP item."""
+    u = torch.zeros((4, 5, 1))
+    kw = dict(sides=((-2, 0, 4),), L=5, ndir=4, mgm=2, p1=8.0, p2=32.0,
+              mode="ad", nch=1, trunc_dist=float("inf"), fix_overcount=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfused.mgm_solve_fused(u, u, **{**kw, **bad})
