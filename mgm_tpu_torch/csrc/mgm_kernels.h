@@ -37,6 +37,25 @@ struct WaveParams {
   int combo_lag[MGM_MAX_COMBOS], combo_roll[MGM_MAX_COMBOS];
 };
 
+#define MGM_MAX_OFFS 5
+
+// Dense MGM recursion over one skewed canonical pass group (K5).
+struct ScanParams {
+  float* vol;          // (M, R, T, L) skewed costs in, aggregated out
+  float* mins;         // (M, R, T) minimum over labels of each cell
+  const float* w;      // (noffs * M, R, T) weights per offset rank, or 0
+  const int* lo;       // (M, R, T) FH label windows, or 0
+  const int* hi;
+  int M, R, T, C, L;
+  int slope, mgm, knight, use_fh, use_weights, fh_restrict;
+  float p1, p2;
+  // offset rank k (offsets in ascending id order): front lag and
+  // whether the neighbour lies one row up; coupled dir j -> offset rank
+  int noffs;
+  int off_lag[MGM_MAX_OFFS], off_shift[MGM_MAX_OFFS];
+  int dir_rank[MGM_MAX_RANKS];
+};
+
 // Cross-space sum + windowed winner-take-all (K2).
 struct WtaParams {
   const float* vol;    // (nspaces * N, R, C, L), space-major planes

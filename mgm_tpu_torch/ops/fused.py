@@ -155,7 +155,8 @@ def _ab_group(ndir: int, mgm: int):
     groups, leftover = split_passes(ndir, mgm)
     if leftover:
         raise NotImplementedError(f"passes {leftover} need the dense "
-                                  "cost-volume path: ROADMAP queue 1 item 7")
+                                  "leftover solve with K8: ROADMAP queue 1 "
+                                  "item 5")
     if len(groups) != 1 or groups[0][0] <= 0:
         raise NotImplementedError("the V and packed-parity spaces: ROADMAP "
                                   "queue 1 item 5")

@@ -23,20 +23,47 @@ def _smooth(a: np.ndarray, axis: int) -> np.ndarray:
     return (s[0] + 2 * s[1] + s[2]) / 4
 
 
+def _planted(rng, H: int, W: int, lo: int, hi: int, bands: int):
+    """(H, W) int32 piecewise-constant field drawn from lo..hi:
+    horizontal bands, each with one rectangular object at its own
+    value."""
+    d = np.empty((H, W), np.int32)
+    edges = np.linspace(0, H, bands + 1).astype(int)
+    for r0, r1 in zip(edges[:-1], edges[1:]):
+        d[r0:r1] = rng.integers(lo, hi + 1)
+        # one object per band, a third of the band's height and of W
+        h = max(1, (r1 - r0) // 3)
+        c0 = int(rng.integers(0, max(1, W - W // 3)))
+        ro = r0 + (r1 - r0 - h) // 2
+        d[ro:ro + h, c0:c0 + W // 3] = rng.integers(lo, hi + 1)
+    return d
+
+
+def synthetic_mrf(H: int, W: int, L: int, *, seed: int = 0, bands: int = 5,
+                  noise: float = 6.0):
+    """A grid-MRF problem with a planted labelling, made from a seed.
+
+    Returns (unary, weights, labels): the (H, W, L) float32 unary
+    cost 4 min(|l - labels|, 16) + |Gaussian noise| drawn independently
+    per (pixel, label), so each pixel's own minimum often misses; the
+    (H, W, 8) float32 edge weights drawn from {0.25, 1}; and the int32
+    (H, W) planted labelling in 0..L-1."""
+    rng = np.random.default_rng(seed)
+    labels = _planted(rng, H, W, 0, L - 1, bands)
+    dist = np.abs(np.arange(L)[None, None, :] - labels[..., None])
+    unary = (4.0 * np.minimum(dist, 16)
+             + np.abs(rng.normal(0.0, noise, (H, W, L)))).astype(np.float32)
+    weights = np.where(rng.random((H, W, 8)) < 0.5, 0.25,
+                       1.0).astype(np.float32)
+    return unary, weights, labels
+
+
 def synthetic_pair(H: int, W: int, dmin: int, dmax: int, *, seed: int = 0,
                    bands: int = 5, noise: float = 2.0):
     """Returns (u, v, d_true): uint8 (H, W, 3) left and right images and
     the int32 (H, W) true disparity, drawn from dmin..dmax."""
     rng = np.random.default_rng(seed)
-    d = np.empty((H, W), np.int32)
-    edges = np.linspace(0, H, bands + 1).astype(int)
-    for r0, r1 in zip(edges[:-1], edges[1:]):
-        d[r0:r1] = rng.integers(dmin, dmax + 1)
-        # one object per band, a third of the band's height and of W
-        h = max(1, (r1 - r0) // 3)
-        c0 = int(rng.integers(0, max(1, W - W // 3)))
-        ro = r0 + (r1 - r0 - h) // 2
-        d[ro:ro + h, c0:c0 + W // 3] = rng.integers(dmin, dmax + 1)
+    d = _planted(rng, H, W, dmin, dmax, bands)
     # the texture spans every column either view can see
     off = -min(dmin, 0)
     Wt = off + W + max(dmax, 0)

@@ -70,7 +70,10 @@ def test_from_jax_rejects_other_types():
 
 def test_port_imports_no_jax():
     code = ("import sys, mgm_tpu_torch, mgm_tpu_torch.cli, "
-            "mgm_tpu_torch.io, mgm_tpu_torch.models, mgm_tpu_torch.synthetic; "
+            "mgm_tpu_torch.io, mgm_tpu_torch.models, mgm_tpu_torch.synthetic, "
+            "mgm_tpu_torch.mrf, mgm_tpu_torch.mrf_cli, mgm_tpu_torch.solver, "
+            "mgm_tpu_torch.ops.aggregate, mgm_tpu_torch.ops.cost, "
+            "mgm_tpu_torch.ops.wavefront, mgm_tpu_torch.ops.refine; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mgm_tpu' "
             "or m.startswith('mgm_tpu.')]; "

@@ -13,9 +13,13 @@ import pytest
 import torch
 
 from mgm_tpu_torch import MGMConfig, compute_disparity
+from mgm_tpu_torch.models import get_preset
+from mgm_tpu_torch.mrf import solve_mrf
 from mgm_tpu_torch.ops import _build, cuda_fused
+from mgm_tpu_torch.ops import aggregate as tagg
 from mgm_tpu_torch.ops import fused as tfused
-from mgm_tpu_torch.synthetic import synthetic_pair
+from mgm_tpu_torch.ops import wavefront as wf
+from mgm_tpu_torch.synthetic import synthetic_mrf, synthetic_pair
 
 
 def assert_bitwise(got, want):
@@ -109,7 +113,8 @@ def test_library_is_keyed_by_the_sources():
     assert path == _build.library_path()
     assert path.parent.parent == _build.BUILD_ROOT
     assert {s.name for s in _build._sources()} >= {
-        "fused_wavefront.cu", "wta.cu", "mgm_kernels.h"}
+        "fused_wavefront.cu", "wta.cu", "wavefront.cu", "skew.cu",
+        "mgm_kernels.h"}
 
 
 @pytest.mark.cuda
@@ -142,6 +147,123 @@ def test_cfg1_pipeline_cuda_equals_cpu(cuda):
     # one forward and one backward launch; both sides are planes of each
     assert cuda_fused.fused_wavefront.launches == n1 + 2
     assert cuda_fused.wta.launches == n2 + 1
+    want = compute_disparity(u, v, cfg, device="cpu")
+    assert sorted(got) == sorted(want)
+    for k in got:
+        assert_bitwise(got[k], want[k])
+
+
+# ---- the dense path's kernels: K6 skew, K7 unskew, K5 wavefront_scan ----
+
+@pytest.mark.parametrize("slope", [1, 2])
+@pytest.mark.parametrize("dtype,fill", [(torch.float32, float("inf")),
+                                        (torch.int32, -1)])
+def test_skew_plain_is_the_definition(slope, dtype, fill):
+    """K6's plain version: out[a, r, slope*r + c, b] = x[a, r, c, b] and
+    `fill` elsewhere; K7's plain version inverts it (exact copies)."""
+    rng = np.random.default_rng(2)
+    A, R, C, B = 3, 5, 7, 2
+    x = torch.from_numpy(rng.integers(-50, 50, (A, R, C, B))).to(dtype)
+    y = wf.skew(x, fill, slope)           # CPU: the plain version
+    T = C + slope * (R - 1)
+    assert y.shape == (A, R, T, B) and y.dtype == dtype
+    want = torch.full((A, R, T, B), fill, dtype=dtype)
+    for r in range(R):
+        for c in range(C):
+            want[:, r, slope * r + c] = x[:, r, c]
+    assert torch.equal(y, want)
+    assert torch.equal(wf.unskew(y, C, slope), x)
+
+
+def test_dense_wrappers_refuse_other_devices():
+    meta = torch.empty((2, 3, 4, 5), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        wf.skew(meta, 0.0, 1)
+    with pytest.raises(ValueError, match="device"):
+        wf.unskew(meta, 2, 1)
+    with pytest.raises(ValueError, match="device"):
+        wf.wavefront_scan(meta, C=2, p1=1.0, p2=2.0, mgm=1, dir2off=(0,),
+                          slope=1)
+
+
+def test_dense_plain_runs_on_cpu_without_counting():
+    unary, w, _ = synthetic_mrf(7, 9, 6, seed=1)
+    n = (wf.skew.launches, wf.unskew.launches, wf.wavefront_scan.launches)
+    lab = solve_mrf(unary, 8, 8.0, 32.0, 2, 0, w, device="cpu")
+    assert lab.shape == (7, 9) and lab.dtype == np.float32
+    assert (wf.skew.launches, wf.unskew.launches,
+            wf.wavefront_scan.launches) == n
+
+
+def _group_case(rng, *, N, H, W, L, ndir, mgm, use_fh=False,
+                use_weights=False, fh_restrict=False, pick=0):
+    """One pass group's canonical inputs and K5 arguments on the CPU."""
+    lo = np.zeros((N, H, W), np.int32)
+    hi = np.full((N, H, W), L - 1, np.int32)
+    if fh_restrict:
+        lo = rng.integers(0, L - 2, (N, H, W)).astype(np.int32)
+        hi = (lo + rng.integers(1, L - 1, (N, H, W))).clip(max=L - 1)
+        hi = hi.astype(np.int32)
+    cc = rng.uniform(0, 50, (N, H, W, L)).astype(np.float32)
+    inw = (np.arange(L) >= lo[..., None]) & (np.arange(L) <= hi[..., None])
+    cc = np.where(inw, cc, np.inf).astype(np.float32)
+    w8 = np.where(rng.random((N, H, W, 8)) < 0.5, 0.25, 1.0)
+    pids = tagg._pass_groups(ndir, mgm)[pick]
+    plan = tagg.group_plan(pids, H, W, mgm)
+    canon = tagg.canonical_inputs(
+        plan, torch.from_numpy(cc), torch.from_numpy(w8.astype(np.float32)),
+        torch.from_numpy(lo), torch.from_numpy(hi), use_weights=use_weights,
+        fh_restrict=fh_restrict)
+    kw = tagg.scan_kwargs(plan, p1=8.0, p2=32.0, mgm=mgm, use_fh=use_fh,
+                          use_weights=use_weights, fh_restrict=fh_restrict)
+    return canon, plan, kw
+
+
+# (ndir, mgm, fh, weights, fh_restrict, group): slope 1 and 2, SGM and
+# FH, weights, the window restriction, knight passes (lag 3), mgm 1-4
+DENSE_CASES = [
+    (8, 1, False, False, False, 0), (8, 2, False, False, False, 0),
+    (8, 2, False, False, False, 2), (8, 3, True, True, False, 3),
+    (8, 4, False, True, False, 1), (8, 3, True, True, True, 2),
+    (16, 4, False, False, False, 4), (16, 2, True, False, False, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [6, 151])
+@pytest.mark.parametrize("case", DENSE_CASES)
+def test_dense_kernels_match_plain(cuda, case, L):
+    ndir, mgm, fh, weights, restrict, pick = case
+    rng = np.random.default_rng(L + pick)
+    canon, plan, kw = _group_case(rng, N=2, H=13, W=17, L=L, ndir=ndir,
+                                  mgm=mgm, use_fh=fh, use_weights=weights,
+                                  fh_restrict=restrict, pick=pick)
+    canon = tuple(None if x is None else x.to(cuda) for x in canon)
+    got = tagg.skewed_inputs(canon, plan.slope)
+    want = tagg.skewed_inputs(canon, plan.slope, skew=wf.skew_plain)
+    for g, w in zip(got, want):   # K6 copies 32-bit words as they are
+        if w is not None:
+            assert np.array_equal(g.cpu().numpy().view(np.uint32),
+                                  w.cpu().numpy().view(np.uint32))
+    vol = wf.wavefront_scan(got[0].clone(), *got[1:], **kw)
+    ref = wf.wavefront_scan_plain(want[0].clone(), *want[1:], **kw)
+    torch.cuda.synchronize()
+    assert_bitwise(vol.cpu().numpy(), ref.cpu().numpy())
+    assert_bitwise(wf.unskew(vol, plan.C, plan.slope).cpu().numpy(),
+                   wf.unskew_plain(ref, plan.C, plan.slope).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_dense_paths_cuda_equal_cpu(cuda):
+    unary, w, _ = synthetic_mrf(20, 27, 12, seed=4)
+    for vtype in (0, 1):
+        n = wf.wavefront_scan.launches
+        got = solve_mrf(unary, 8, 8.0, 32.0, 2, vtype, w, device=cuda)
+        assert wf.wavefront_scan.launches == n + 4   # one per pass group
+        assert_bitwise(got, solve_mrf(unary, 8, 8.0, 32.0, 2, vtype, w,
+                                      device="cpu"))
+    u, v, _ = synthetic_pair(24, 40, -8, 4, seed=3)
+    cfg = get_preset("ncc", dmin=-8, dmax=4)
+    got = compute_disparity(u, v, cfg, device=cuda)
     want = compute_disparity(u, v, cfg, device="cpu")
     assert sorted(got) == sorted(want)
     for k in got:

@@ -16,6 +16,7 @@ import torch
 import mgm_tpu.cli as jcli
 from mgm_tpu.config import MGMConfig as JaxConfig
 from mgm_tpu.io import read_image, write_image
+from mgm_tpu.models import get_preset as jax_preset
 from mgm_tpu.stereo import compute_disparity as jax_disparity
 from mgm_tpu_torch import cli as tcli
 from mgm_tpu_torch import compute_disparity
@@ -82,6 +83,9 @@ def test_outputs_filter(pair):
     (dict(refinement="vfit"), "ROADMAP"), (dict(distance="census"),
                                            "ROADMAP"),
     (dict(prefilter="gblur"), "ROADMAP"), (dict(a_p2=0.5), "ROADMAP"),
+    (dict(distance="ncc", iterations=2), "item 6"),
+    (dict(distance="ncc", debug=True), "item 6"),
+    (dict(distance="ncc", prefilter="sobelx"), "item 2"),
 ])
 def test_unsupported_raise(pair, kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -126,3 +130,56 @@ def test_cli_refuses_missing_gpu(tmp_path, pair):
 def test_cli_help(capsys):
     assert tcli.main(["--help"]) == 0
     assert "disparity" in capsys.readouterr().out.lower()
+
+
+@pytest.fixture(scope="module", params=["preset", "weighted_fh"])
+def ncc_runs(request):
+    """The `ncc` preset (8 directions, TSGM 2, NCC window 5, vfit, LR),
+    and the same with adaptive weights and the truncated-linear
+    potential at TSGM 3, on a 16x24 crop through both packages:
+    (mgm_tpu's, the port's)."""
+    u, v, _ = synthetic_pair(16, 24, -6, 3, seed=3)
+    cfg = jax_preset("ncc", dmin=-6, dmax=3)
+    if request.param == "weighted_fh":
+        cfg = cfg.replace(a_p2=0.5, a_thresh=20.0, use_trunc_linear=True,
+                          mgm=3, p1=2, p2=20)
+    return (jax_disparity(u, v, cfg),
+            compute_disparity(u, v, from_jax(cfg), device="cpu"))
+
+
+def test_ncc_preset_matches_mgm_tpu(ncc_runs):
+    """mgm_tpu jits its NCC volume, and XLA's fusions round it
+    differently from the op-by-op arithmetic the port shares with
+    mgm_tpu's eager _ncc_costs (entries differ by up to ~1e-4,
+    tests/test_torch_aggregate.py).  So: equal NaN masks, the same
+    integer label everywhere but at most 1 % of pixels (near-ties),
+    subpixel disparities within 1e-4 px and costs within 5e-3 absolute
+    + 1e-5 relative where the labels agree."""
+    want, got = ncc_runs
+    assert sorted(got) == sorted(want) == sorted(KEYS)
+    for side in ("", "_right"):
+        for k in ("disp" + side, "disp_nolr" + side):
+            g, w = got[k], want[k]
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+            fin = np.isfinite(w)
+            same = np.round(g[fin]) == np.round(w[fin])
+            assert 1.0 - same.mean() <= 0.01, k
+            np.testing.assert_allclose(g[fin][same], w[fin][same], atol=1e-4,
+                                       rtol=0)
+        agree = np.round(got["disp_nolr" + side]) == np.round(
+            want["disp_nolr" + side])
+        np.testing.assert_allclose(got["cost" + side][agree],
+                                   want["cost" + side][agree], atol=5e-3,
+                                   rtol=1e-5)
+    same = got["disp"] == want["disp"]
+    assert_bitwise(got["backflow"][same], want["backflow"][same])
+    # subpixel output, and the pair is solvable
+    assert np.isfinite(got["disp"]).mean() > 0.5
+    assert (got["disp"][np.isfinite(got["disp"])] % 1 != 0).any()
+
+
+def test_compute_disparity_defaults_to_the_gpu(pair):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+        compute_disparity(*pair, from_jax(CFG1))
