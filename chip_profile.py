@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time goes on one GPU: the port's three full-width runs.
+"""Where the time goes on one GPU: the port's five full-width runs.
 
     python3 chip_profile.py [--reps N] [--out DIR]
 
 Run from a checkout on a machine with one CUDA card (it builds the
 kernels like chip_smoke.py and imports no JAX).  The runs, on seeded
 synthetic data at 700x500, L = 151:
-  cfg1   compute_disparity, AD, 4 directions, TSGM 2, LR (fused K1/K2);
-  ncc    compute_disparity with the `ncc` preset, LR (dense K6/K5/K7);
-  mgm_o  mrf_cli.main on a protocol file, NDIR 8, MGM 2, VTYPE 0.
+  cfg1        compute_disparity, AD, 4 directions, TSGM 2, LR (fused
+              K1/K2);
+  cfg1_tsgm4  the same at TSGM 4 (K1 in spaces A and PB, K2);
+  full_16dir  the same at 16 directions, TSGM 2 (K1 in A/B and V, the
+              knight passes through K8 and K6/K5/K7);
+  ncc         compute_disparity with the `ncc` preset, LR (dense
+              K6/K5/K7);
+  mgm_o       mrf_cli.main on a protocol file, NDIR 8, MGM 2, VTYPE 0.
 For each run it prints
   - the host wall time, median of N plain runs;
   - host stage times: the run's stage functions are wrapped with a
@@ -31,7 +36,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
-from chip_smoke import DMAX, DMIN, H, L, W, _walls  # noqa: E402
+from chip_smoke import (DMAX, DMIN, H, L, W, _device_line,  # noqa: E402
+                        _walls)
 
 
 class _Stages:
@@ -120,16 +126,18 @@ def main(argv=None) -> int:
         return 1
     from mgm_tpu_torch import MGMConfig, mrf, mrf_cli, solver, stereo
     from mgm_tpu_torch.models import get_preset
-    from mgm_tpu_torch.ops import _build, cuda_fused
+    from mgm_tpu_torch.ops import _build, cuda_fused, fused
     from mgm_tpu_torch.ops import aggregate as agg
     from mgm_tpu_torch.ops import wavefront as wf
     from mgm_tpu_torch.synthetic import synthetic_mrf, synthetic_pair
 
     _build.build()
-    card = torch.cuda.get_device_name(0)
+    card = _device_line()     # the card's name and power limit
     u, v, _ = synthetic_pair(H, W, DMIN, DMAX, seed=0)
     cfg1 = MGMConfig(dmin=DMIN, dmax=DMAX, ndir=4, mgm=2, distance="ad",
                      p1=8, p2=32, test_lr=True)
+    tsgm4 = cfg1.replace(mgm=4)
+    full16 = cfg1.replace(ndir=16)
     ncc = get_preset("ncc", dmin=DMIN, dmax=DMAX)
     tmp = tempfile.TemporaryDirectory()
     f_in = os.path.join(tmp.name, "input.bin")
@@ -142,13 +150,27 @@ def main(argv=None) -> int:
     dense = [(agg, "canonical_inputs", "  canonicalise"),
              (wf, "skew", "  K6 skew"), (wf, "wavefront_scan", "  K5 scan"),
              (wf, "unskew", "  K7 unskew")]
+    fused_wta = [(stereo, "_scrub", "upload + scrub"),
+                 (stereo, "mgm_solve_fused", "fused solve"),
+                 (cuda_fused, "fused_wavefront", "  K1 fused wavefront"),
+                 (cuda_fused, "wta", "  K2 wta")]
     runs = [
         ("cfg1", lambda: stereo.compute_disparity(u, v, cfg1, device="cuda"),
+         2 * H * W * L, fused_wta),
+        ("cfg1_tsgm4", lambda: stereo.compute_disparity(u, v, tsgm4,
+                                                        device="cuda"),
+         2 * H * W * L, fused_wta),
+        ("full_16dir", lambda: stereo.compute_disparity(u, v, full16,
+                                                        device="cuda"),
          2 * H * W * L,
          [(stereo, "_scrub", "upload + scrub"),
           (stereo, "mgm_solve_fused", "fused solve"),
           (cuda_fused, "fused_wavefront", "  K1 fused wavefront"),
-          (cuda_fused, "wta", "  K2 wta")]),
+          (fused, "assemble_groups", "  space sum"),
+          (fused, "_dense_cc", "  K8 cost volumes"),
+          (fused, "aggregate", "  aggregate knight passes")]
+         + [(m, a, " " + n) for m, a, n in dense]
+         + [(fused, "assemble_swta", "  S assembly + WTA")]),
         ("ncc", lambda: stereo.compute_disparity(u, v, ncc, device="cuda"),
          2 * H * W * L,
          [(stereo, "_scrub", "upload + scrub"),

@@ -16,10 +16,12 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     same planes: bitwise equal;
  4. cfg1 end to end: compute_disparity(device="cuda") on a 700x500x3
     synthetic pair with a known disparity field (-120..30), through both
-    kernels (launch counters), with the recovery thresholds checked, and
-    the same pipeline on a crop equal to its CPU run;
- 5. timing: the median of REPS cfg1 runs in MP*disp/s (2*H*W*L / s)
-    and each kernel's time beside its plain version's at cfg1 shapes;
+    kernels (launch counters), with the recovery thresholds checked, the
+    same pipeline on a crop equal to its CPU run, peak device memory and
+    the median of REPS runs in MP*disp/s (2*H*W*L / s);
+ 5. K1 and K2 against their plain versions at cfg1's full shape (the
+    synthetic pair, 700x500, L = 151, both LR sides): bitwise equal;
+    then each one's time beside its plain version's;
  6. the dense path's kernels K6 (skew), K5 (wavefront scan) and K7
     (unskew) against their plain versions on a 64-row strip, 700 wide,
     L = 151, both LR problems: SGM TSGM 2 at slope 1 and 2, weighted FH
@@ -38,7 +40,24 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
  9. K6, K5 and K7 against their plain versions at the NCC run's
     largest pass group (the shapes the main path gives them): bitwise
     equal; then each one's time beside its plain version's and one
-    PyTorch library call's.
+    PyTorch library call's;
+10. K1 and K2 against their plain versions on a 64-row strip, 700
+    wide, L = 151, both LR sides, for the V group (ndir 8, TSGM 2,
+    slope 0) and the packed-parity group (ndir 8, TSGM 4, PA + PB):
+    bitwise equal;
+11. K8 (pointwise cost volume) against its plain version at 700x500,
+    L = 151, for ad, sd, btad, btsd and census (random packed words):
+    bitwise equal; then its time at full_16dir's two calls beside its
+    plain version's;
+12. full_16dir (bench_matrix's row: fast_ad at ndir 16, TSGM 2) end to
+    end as phase 4, through K1 (A/B and V groups), K8 and K6/K5/K7 on
+    the knight passes (launch counters);
+13. cfg1_tsgm4 (fast_ad at TSGM 4: A and PB groups) end to end as
+    phase 4, through K1 and K2;
+14. K1 and K2 against their plain versions at the full shapes of
+    full_16dir (A/B at slope 2 and V into one volume) and cfg1_tsgm4 (A
+    at slope 2 and PB): bitwise equal; then K1's time per front of each
+    group at full width: A/B at slope 2, V, PB and PA + PB.
 
 With --data DIR holding fountain23-imL.png and fountain23-imR.png
 (default: the repository's data/), cfg1 also runs on that pair.  The
@@ -46,8 +65,9 @@ last three lines are the per-kernel JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}; a failure exits
 non-zero before them.  A kernel's `launches` counts its wrapper's
 calls on the main paths, each path's counts zeroed just before its run
-and read just after (`launches_by_path`): cfg1 (phase 4) for K1/K2,
-the two mgm_o runs and the NCC run (phases 7-8) for K5/K6/K7;
+and read just after (`launches_by_path`): cfg1 (phase 4) and
+cfg1_tsgm4 (phase 13) for K1/K2, the two mgm_o runs and the NCC run
+(phases 7-8) for K5/K6/K7, full_16dir (phase 12) for K1, K5-K8;
 `launches` is their sum.  One K1 or K5 call launches one small kernel
 per wavefront.  `bound_ms` is the larger of the bytes the call must
 move over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
@@ -87,6 +107,8 @@ DENSE_CASES = (
     ("weighted FH TSGM 3, per-pixel windows", 8, 3, True, True, True, 0),
 )
 DENSE_KERNELS = ("wavefront_scan", "skew", "unskew")
+FUSED_KERNELS = ("fused_wavefront", "wta")
+CENSUS_WORDS = 2                 # phase 11's packed census words a pixel
 
 
 def _device_line() -> str:
@@ -125,9 +147,11 @@ def _same_bits(name, got, want):
     return 0.0
 
 
-def _planes(fn, u, v, *, ndir, mgm, dmin, dmax):
-    """Both launches of one solve through `fn` (K1 or its plain version)
-    on uint8 numpy images; returns (volume, sides, nspaces)."""
+def _planes(fn, u, v, *, ndir, mgm, dmin, dmax, group=None):
+    """Every K1 launch of one fast_ad solve's fused groups (or of group
+    number `group` alone) through `fn` (K1 or its plain version) on
+    uint8 numpy images, with the solve's own overcount fold (none when
+    it has leftover passes); returns (volume, sides, nspaces)."""
     import torch
     from mgm_tpu_torch.ops import fused
 
@@ -136,10 +160,13 @@ def _planes(fn, u, v, *, ndir, mgm, dmin, dmax):
     C = u.shape[-1]
     lefts = torch.from_numpy(np.stack([u, v])).cuda().float()
     rights = torch.from_numpy(np.stack([v, u])).cuda().float()
+    groups, leftover = fused.split_passes(ndir, mgm)
+    if group is not None:
+        groups = groups[group:group + 1]
     vol, nspaces = fused.fused_planes(
-        lefts, rights, sides=sides, L=L, ndir=ndir, mgm=mgm, p1=8.0 * C,
-        p2=32.0 * C, mode="ad", tmax=float("inf"), kappa=-float(ndir - 1),
-        wavefront=fn)
+        lefts, rights, sides=sides, L=L, groups=groups, mgm=mgm,
+        p1=8.0 * C, p2=32.0 * C, mode="ad", tmax=float("inf"),
+        kappa=0.0 if leftover else -float(ndir - 1), wavefront=fn)
     return vol, sides, nspaces
 
 
@@ -157,6 +184,20 @@ def _event_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _event_once(fn):
+    """(device time of one fn() run by CUDA events, its result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
 
 
 def _event_ms_fresh(prep, fn, reps: int, warm: bool = True):
@@ -203,13 +244,75 @@ def _walls(fn, reps: int) -> list[float]:
     return out
 
 
-def _counts(wf):
-    return {n: getattr(wf, n).launches for n in DENSE_KERNELS}
+def _kernels() -> dict:
+    """Every kernel wrapper of the port by name (each has `launches`)."""
+    from mgm_tpu_torch.ops import cuda_cost, cuda_fused
+    from mgm_tpu_torch.ops import wavefront as wf
+
+    return {"fused_wavefront": cuda_fused.fused_wavefront,
+            "wta": cuda_fused.wta, "wavefront_scan": wf.wavefront_scan,
+            "skew": wf.skew, "unskew": wf.unskew,
+            "pointwise_volume": cuda_cost.pointwise_volume}
 
 
-def _zero(wf):
-    for n in DENSE_KERNELS:
-        getattr(wf, n).launches = 0
+def _counts(names):
+    k = _kernels()
+    return {n: k[n].launches for n in names}
+
+
+def _zero(names):
+    for n in names:
+        _kernels()[n].launches = 0
+
+
+def _stereo_path(phase, tag, cfg, pair, names, card, reps):
+    """One stereo row end to end at full width: the kernels `names`
+    counted over one compute_disparity(device="cuda") run (each must
+    launch), shapes, finite costs, the recovery thresholds (>= 0.70 LR
+    survivors, >= 0.95 of them exact), peak device memory, a crop equal
+    to its CPU run, and the median wall of `reps` runs.  Returns the
+    launch counts."""
+    import torch
+    from mgm_tpu_torch import compute_disparity
+
+    u, v, d_true = pair
+    H_, W_ = u.shape[:2]
+    L_ = cfg.dmax - cfg.dmin + 1
+    _zero(names)
+    torch.cuda.reset_peak_memory_stats()
+    out = compute_disparity(u, v, cfg, device="cuda")
+    got = _counts(names)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if min(got.values()) < 1:
+        raise AssertionError(f"{tag} bypassed a kernel: {got}")
+    disp = out["disp"]
+    if disp.shape != (H_, W_) or out["cost"].shape != (H_, W_):
+        raise AssertionError(f"{tag} output shapes {disp.shape}")
+    ok = np.isfinite(disp)
+    if not np.isfinite(out["cost"][ok]).all():
+        raise AssertionError(f"{tag}: a surviving pixel has no finite cost")
+    survive = float(ok.mean())
+    correct = float((disp[ok] == d_true[ok]).mean())
+    print(f"[{phase}] {tag} {W_}x{H_}x3 L={L_} (ndir {cfg.ndir}, TSGM "
+          f"{cfg.mgm}): launches {got}, LR survivors {survive:.4f} "
+          f"(>= 0.70), correct among them {correct:.4f} (>= 0.95), peak "
+          f"device memory {peak:.3f} GiB", flush=True)
+    if survive < 0.70 or correct < 0.95:
+        raise AssertionError(f"{tag} recovery below threshold")
+    small_gpu = compute_disparity(u[CROP], v[CROP], cfg, device="cuda")
+    small_cpu = compute_disparity(u[CROP], v[CROP], cfg, device="cpu")
+    for k in small_cpu:
+        _compare(f"{tag} crop {k}", torch.from_numpy(small_gpu[k]),
+                 torch.from_numpy(small_cpu[k]))
+    print(f"[{phase}] {tag} on a {small_cpu['disp'].shape} crop: CUDA == "
+          f"CPU plain for every output ({TOL})", flush=True)
+    walls = _walls(lambda: compute_disparity(u, v, cfg, device="cuda",
+                                             outputs=("disp", "cost")), reps)
+    med = statistics.median(walls)
+    print(f"[{phase}] {tag} wall s per run: {walls}; median {med:.4f} s = "
+          f"{2 * H_ * W_ * L_ / med / 1e6:.1f} MP*disp/s on {card}",
+          flush=True)
+    return got
 
 
 def _dense_strip(case, rng, dev):
@@ -257,6 +360,41 @@ def _dense_strip(case, rng, dev):
     return errs, plan
 
 
+def _fused_check(phase, cases, errs, u, v):
+    """K1 and K2 against their plain versions on the uint8 pair (u, v),
+    L = 151, both LR sides, for each (ndir, mgm, group) case (group
+    None: every fused group of the solve); folds the max abs errors
+    into `errs` and returns each case's plain K1 time (ms, one run)."""
+    import torch
+    from mgm_tpu_torch.ops import cuda_fused, fused
+
+    plain_ms = []
+    for ndir, mgm, group in cases:
+        kw = dict(ndir=ndir, mgm=mgm, dmin=DMIN, dmax=DMAX, group=group)
+        got, sides, ns = _planes(cuda_fused.fused_wavefront, u, v, **kw)
+        t, (want, _, _) = _event_once(lambda: _planes(
+            cuda_fused.fused_wavefront_plain, u, v, **kw))
+        plain_ms.append(t)
+        e1 = _compare(f"K1 ndir={ndir} mgm={mgm} group={group}", got, want)
+        del want
+        d1, c1 = cuda_fused.wta(got, nspaces=ns, sides=sides)
+        d0, c0 = cuda_fused.wta_plain(got, nspaces=ns, sides=sides)
+        torch.cuda.synchronize()
+        e2 = max(_compare("K2 disp", d1, d0), _compare("K2 cost", c1, c0))
+        errs["fused_wavefront"] = max(errs["fused_wavefront"], e1)
+        errs["wta"] = max(errs["wta"], e2)
+        groups = fused.split_passes(ndir, mgm)[0]
+        if group is not None:
+            groups = groups[group:group + 1]
+        what = ", ".join(f"slope {g[0]} {'+'.join(g[1])}" for g in groups)
+        print(f"[{phase}] K1 == plain at {u.shape[0]}x{u.shape[1]}x3, "
+              f"L={L}, ndir={ndir} TSGM={mgm} ({what}): {TOL}, max abs err "
+              f"{e1}; K2 == plain on those planes ({ns} spaces): max abs "
+              f"err {e2}", flush=True)
+        del got
+    return plain_ms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--data", default=os.path.join(REPO, "data"),
@@ -272,10 +410,10 @@ def main(argv=None) -> int:
     from mgm_tpu_torch import MGMConfig, compute_disparity, mrf_cli
     from mgm_tpu_torch.models import get_preset
     from mgm_tpu_torch.mrf import solve_mrf
-    from mgm_tpu_torch.ops import _build, cuda_fused, fused
+    from mgm_tpu_torch.ops import _build, cuda_cost, cuda_fused, fused
     from mgm_tpu_torch.ops import aggregate as agg
     from mgm_tpu_torch.ops import wavefront as wf
-    from mgm_tpu_torch.ops.cost import build_cost_volume
+    from mgm_tpu_torch.ops.cost import _bt_aux, build_cost_volume
     from mgm_tpu_torch.synthetic import synthetic_mrf, synthetic_pair
 
     t_start = time.perf_counter()
@@ -290,81 +428,34 @@ def main(argv=None) -> int:
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
     print((lib.parent / "build.log").read_text().strip(), flush=True)
 
-    # ---- 2./3. kernels against their plain versions ------------------
-    errs = {"fused_wavefront": 0.0, "wta": 0.0}
-    u, v, _ = synthetic_pair(STRIP, W, DMIN, DMAX, seed=1)
-    for ndir, mgm in ((4, 2), (2, 4)):
-        kw = dict(ndir=ndir, mgm=mgm, dmin=DMIN, dmax=DMAX)
-        got, sides, ns = _planes(cuda_fused.fused_wavefront, u, v, **kw)
-        want, _, _ = _planes(cuda_fused.fused_wavefront_plain, u, v, **kw)
-        torch.cuda.synchronize()
-        e1 = _compare(f"K1 ndir={ndir} mgm={mgm}", got, want)
-        d1, c1 = cuda_fused.wta(got, nspaces=ns, sides=sides)
-        d0, c0 = cuda_fused.wta_plain(got, nspaces=ns, sides=sides)
-        torch.cuda.synchronize()
-        e2 = max(_compare("K2 disp", d1, d0), _compare("K2 cost", c1, c0))
-        errs["fused_wavefront"] = max(errs["fused_wavefront"], e1)
-        errs["wta"] = max(errs["wta"], e2)
-        slope = fused.split_passes(ndir, mgm)[0][0][0]
-        print(f"[2] K1 == plain at {STRIP}x{W}x3, L={L}, "
-              f"ndir={ndir} TSGM={mgm} (slope {slope}): {TOL}, max abs err "
-              f"{e1}")
-        print(f"[3] K2 == plain on those planes: {TOL}, max abs err {e2}",
-              flush=True)
-        del got, want
+    # ---- 2./3. K1 and K2 against their plain versions ----------------
+    errs = {n: 0.0 for n in _kernels()}
+    strip = synthetic_pair(STRIP, W, DMIN, DMAX, seed=1)[:2]
+    _fused_check("2-3", ((4, 2, None), (2, 4, None)), errs, *strip)
 
     # ---- 4. cfg1 end to end -------------------------------------------
     cfg = MGMConfig(dmin=DMIN, dmax=DMAX, ndir=4, mgm=2, distance="ad",
                     p1=8, p2=32, test_lr=True)
-    u, v, d_true = synthetic_pair(H, W, DMIN, DMAX, seed=0)
-    cuda_fused.fused_wavefront.launches = 0
-    cuda_fused.wta.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    out = compute_disparity(u, v, cfg, device="cuda")
-    launches = {"fused_wavefront": cuda_fused.fused_wavefront.launches,
-                "wta": cuda_fused.wta.launches}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"cfg1 bypassed a kernel: {launches}")
-    disp = out["disp"]
-    if disp.shape != (H, W) or out["cost"].shape != (H, W):
-        raise AssertionError(f"cfg1 output shapes {disp.shape}")
-    ok = np.isfinite(disp)
-    if not np.isfinite(out["cost"][ok]).all():
-        raise AssertionError("cfg1: a surviving pixel has no finite cost")
-    survive = float(ok.mean())
-    correct = float((disp[ok] == d_true[ok]).mean())
-    print(f"[4] cfg1 {W}x{H}x3 L={L}: launches {launches}, LR survivors "
-          f"{survive:.4f} (>= 0.70), correct among them {correct:.4f} "
-          f"(>= 0.95), peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    if survive < 0.70 or correct < 0.95:
-        raise AssertionError("cfg1 recovery below threshold")
-    small_gpu = compute_disparity(u[CROP], v[CROP], cfg, device="cuda")
-    small_cpu = compute_disparity(u[CROP], v[CROP], cfg, device="cpu")
-    for k in small_cpu:
-        _compare(f"cfg1 crop {k}", torch.from_numpy(small_gpu[k]),
-                 torch.from_numpy(small_cpu[k]))
-    print(f"[4] cfg1 on a {small_cpu['disp'].shape} crop: CUDA == CPU plain "
-          f"for every output ({TOL})", flush=True)
+    pair = synthetic_pair(H, W, DMIN, DMAX, seed=0)
+    u, v, d_true = pair
+    # per kernel: {main path: launches in that path's run}
+    by_path = {n: {} for n in _kernels()}
+    got = _stereo_path("4", "cfg1", cfg, pair, FUSED_KERNELS, card, REPS)
+    for n in got:
+        by_path[n]["cfg1"] = got[n]
 
-    # ---- 5. timing -----------------------------------------------------
-    walls = _walls(lambda: compute_disparity(u, v, cfg, device="cuda",
-                                             outputs=("disp", "cost")), REPS)
-    med = statistics.median(walls)
-    print(f"[5] cfg1 wall s per run: {walls}; median {med:.4f} s = "
-          f"{2 * H * W * L / med / 1e6:.1f} MP*disp/s on {card}", flush=True)
-
-    def k1(fn):
-        return lambda: _planes(fn, u, v, ndir=4, mgm=2, dmin=DMIN,
-                               dmax=DMAX)
-
-    ms = {"fused_wavefront": _event_ms(k1(cuda_fused.fused_wavefront), 3)}
+    # ---- 5. K1 and K2 at cfg1's full shape: check and timing ---------
+    plain_ms = {"fused_wavefront": _fused_check("5", ((4, 2, None),), errs,
+                                                u, v)[0]}
+    ms = {"fused_wavefront": _event_ms(lambda: _planes(
+        cuda_fused.fused_wavefront, u, v, ndir=4, mgm=2, dmin=DMIN,
+        dmax=DMAX), 3)}
     vol, sides, ns = _planes(cuda_fused.fused_wavefront, u, v, ndir=4,
                              mgm=2, dmin=DMIN, dmax=DMAX)
     ms["wta"] = _event_ms(lambda: cuda_fused.wta(vol, nspaces=ns,
                                                  sides=sides), 10)
-    plain_ms = {"wta": _event_ms(lambda: cuda_fused.wta_plain(
-        vol, nspaces=ns, sides=sides), 3)}
+    plain_ms["wta"] = _event_ms(lambda: cuda_fused.wta_plain(
+        vol, nspaces=ns, sides=sides), 3)
     # K2's library yardstick: torch.min over the summed volume
     n_sides = len(sides)
     ssum = vol[:n_sides] + vol[n_sides:]
@@ -380,8 +471,6 @@ def main(argv=None) -> int:
               "wta": _bound(vbytes + 2 * n_sides * H * W * 4,
                             2 * vol.numel())}
     del vol
-    plain_ms["fused_wavefront"] = _event_ms(
-        k1(cuda_fused.fused_wavefront_plain), 1)
     for name in ms:
         print(f"[5] {name}: {ms[name]:.3f} ms, plain {plain_ms[name]:.3f} ms "
               f"(cfg1 shapes: 4 planes {H}x{W}, L={L}; K1 = forward + "
@@ -417,20 +506,17 @@ def main(argv=None) -> int:
 
     # ---- 7. mgm_o at full width ---------------------------------------
     unary, w8, planted = synthetic_mrf(H, W, L, seed=0)
-    # per kernel: {main path: launches in that path's run}
-    by_path = {n: {"cfg1": launches[n]} for n in launches}
-    by_path.update({n: {} for n in DENSE_KERNELS})
     with tempfile.TemporaryDirectory() as tmp:
         f_in, f_out = os.path.join(tmp, "input.bin"), os.path.join(
             tmp, "labeling.bin")
         mrf_cli.write_problem(f_in, unary, w8)
         for vtype in (0, 1):
             argv = [f_in, f_out, "8", "32", "2", str(vtype)]
-            _zero(wf)
+            _zero(DENSE_KERNELS)
             torch.cuda.reset_peak_memory_stats()
             if mrf_cli.main(argv) != 0:
                 raise AssertionError(f"mrf_cli VTYPE {vtype} failed")
-            got = _counts(wf)
+            got = _counts(DENSE_KERNELS)
             if min(got.values()) < 1:
                 raise AssertionError(f"mgm_o VTYPE {vtype} bypassed a "
                                      f"kernel: {got}")
@@ -462,10 +548,10 @@ def main(argv=None) -> int:
 
     # ---- 8. the ncc preset at cfg1 geometry ---------------------------
     ncc = get_preset("ncc", dmin=DMIN, dmax=DMAX)
-    _zero(wf)
+    _zero(DENSE_KERNELS)
     torch.cuda.reset_peak_memory_stats()
     out = compute_disparity(u, v, ncc, device="cuda")
-    got = _counts(wf)
+    got = _counts(DENSE_KERNELS)
     if min(got.values()) < 1:
         raise AssertionError(f"NCC bypassed a kernel: {got}")
     for n in DENSE_KERNELS:
@@ -577,9 +663,89 @@ def main(argv=None) -> int:
               f"({bounds[n][1]}) at the NCC run's largest group: {A} planes,"
               f" {R}x{C} canonical, slope {s}, {T} fronts, L={Lx} on {card}",
               flush=True)
-    for n in DENSE_KERNELS:
-        launches[n] = sum(by_path[n].values())
-    print(f"[9] smoke run took {time.perf_counter() - t_start:.1f} s",
+    del x
+
+    # ---- 10. K1 and K2 in the V and packed-parity spaces -------------
+    _fused_check("10", ((8, 2, 1), (8, 4, 1)), errs,
+                 *synthetic_pair(STRIP, W, DMIN, DMAX, seed=2)[:2])
+
+    # ---- 11. K8 against its plain version at full width -------------
+    ut, vt = (torch.from_numpy(a).to(dev).float() for a in (u, v))
+    rng = np.random.default_rng(11)
+    words = [torch.from_numpy(rng.integers(0, 2**32, (H, W, CENSUS_WORDS),
+                                           dtype=np.uint64).astype(np.uint32)
+                              .view(np.int32)).to(dev) for _ in range(2)]
+    inputs = {"ad": (ut, vt), "sd": (ut, vt), "census": tuple(words),
+              "btad": tuple(torch.cat([a, *_bt_aux(a)], -1)
+                            for a in (ut, vt))}
+    inputs["btsd"] = inputs["btad"]
+    e11 = {}
+    for mode in cuda_cost.MODES:
+        a, b = inputs[mode]
+        e11[mode] = _compare(
+            f"K8 {mode}",
+            cuda_cost.pointwise_volume(a, b, gmin=DMIN, L=L, mode=mode),
+            cuda_cost.pointwise_volume_plain(a, b, gmin=DMIN, L=L, mode=mode))
+    errs["pointwise_volume"] = max(e11.values())
+    print(f"[11] K8 == plain at {H}x{W}, L={L}, ad/sd/btad/btsd on the "
+          f"synthetic pair, census on {CENSUS_WORDS} random words a pixel: "
+          f"{TOL}, max abs err {e11}", flush=True)
+    del inputs, words
+
+    # full_16dir's two K8 calls: ad, each side's left image against the
+    # other, 3 channels
+    def k8(fn):
+        return lambda: (fn(ut, vt, gmin=DMIN, L=L, mode="ad"),
+                        fn(vt, ut, gmin=-DMAX, L=L, mode="ad"))
+
+    ms["pointwise_volume"] = _event_ms(k8(cuda_cost.pointwise_volume), 10)
+    plain_ms["pointwise_volume"] = _event_ms(
+        k8(cuda_cost.pointwise_volume_plain), 2)
+    # no single PyTorch call computes a shifted-window distance volume
+    library_ms["pointwise_volume"] = None
+    # both sides: the (H, W, L) float volume written once, both images
+    # read once; per cell 3 channels of subtract, abs and add
+    bounds["pointwise_volume"] = _bound(2 * (H * W * L + 2 * H * W * 3) * 4,
+                                        2 * H * W * L * 9)
+    print(f"[11] pointwise_volume: {ms['pointwise_volume']:.3f} ms, plain "
+          f"{plain_ms['pointwise_volume']:.3f} ms, bound "
+          f"{bounds['pointwise_volume'][0]:.3f} ms "
+          f"({bounds['pointwise_volume'][1]}) for full_16dir's two ad calls "
+          f"({H}x{W}x3, L={L}) on {card}", flush=True)
+    del ut, vt
+
+    # ---- 12./13. full_16dir and cfg1_tsgm4 end to end ----------------
+    rows = {"full_16dir": ("12", get_preset("fast_ad", dmin=DMIN, dmax=DMAX,
+                                            test_lr=True, ndir=16),
+                           ("fused_wavefront",) + DENSE_KERNELS
+                           + ("pointwise_volume",)),
+            "cfg1_tsgm4": ("13", get_preset("fast_ad", dmin=DMIN, dmax=DMAX,
+                                            test_lr=True, mgm=4),
+                           FUSED_KERNELS)}
+    for tag, (phase, rcfg, names) in rows.items():
+        got = _stereo_path(phase, tag, rcfg, pair, names, card, REPS)
+        for n in got:
+            by_path[n][tag] = got[n]
+        torch.cuda.empty_cache()
+
+    # ---- 14. K1 and K2 at the new rows' full shapes; K1 per front ---
+    _fused_check("14", ((16, 2, None), (4, 4, None)), errs, u, v)
+    torch.cuda.empty_cache()
+    for tag, ndir, mgm, group in (("A/B slope 2", 16, 2, 0), ("V", 16, 2, 1),
+                                  ("PB", 4, 4, 1), ("PA+PB", 8, 4, 1)):
+        g = fused.split_passes(ndir, mgm)[0][group]
+        slope, fstep = (1, 2) if g[0] == fused.P_SLOPE else (g[0], 1)
+        fronts = len(g[2]) * (fstep * (W - 1) + slope * (H - 1) + 1)
+        gms = _event_ms(lambda: _planes(
+            cuda_fused.fused_wavefront, u, v, ndir=ndir, mgm=mgm, dmin=DMIN,
+            dmax=DMAX, group=group), 3)
+        print(f"[14] K1 {tag} group of ndir {ndir} TSGM {mgm} at {H}x{W}, "
+              f"L={L}, {2 * len(g[1])} planes: {gms:.3f} ms for {fronts} "
+              f"front kernels = {gms / fronts * 1e3:.3f} us a front on "
+              f"{card}", flush=True)
+
+    launches = {n: sum(c.values()) for n, c in by_path.items()}
+    print(f"[14] smoke run took {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     src = {"fused_wavefront": ("mgm_tpu_torch/csrc/fused_wavefront.cu",
@@ -591,13 +757,15 @@ def main(argv=None) -> int:
            "skew": ("mgm_tpu_torch/csrc/skew.cu",
                     "mgm_tpu/ops/pallas_wavefront.py:43"),
            "unskew": ("mgm_tpu_torch/csrc/skew.cu",
-                      "mgm_tpu/ops/pallas_wavefront.py:93")}
+                      "mgm_tpu/ops/pallas_wavefront.py:93"),
+           "pointwise_volume": ("mgm_tpu_torch/csrc/cost.cu",
+                                "mgm_tpu/ops/pallas_cost.py:31")}
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src[n][0],
          "replaces": src[n][1], "launches": launches[n],
-         "launches_by_path": by_path[n], "max_abs_err": errs[n], "ms": ms[n], "plain_ms": plain_ms[n],
-         "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
-         "library_ms": library_ms[n]}
+         "launches_by_path": by_path[n], "max_abs_err": errs[n],
+         "ms": ms[n], "plain_ms": plain_ms[n], "bound_ms": bounds[n][0],
+         "bound_by": bounds[n][1], "library_ms": library_ms[n]}
         for n in src]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

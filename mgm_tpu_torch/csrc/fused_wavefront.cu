@@ -3,11 +3,18 @@
 // Replaces the TPU kernel mgm_tpu/ops/pallas_fused.py:_kernel (launched
 // by fused_wavefront, pallas_fused.py:1057).  It computes the same
 // thing: for every front t of a skewed schedule (pixel (r, col) of a
-// plane lies on front t = col + a0 - ssgn*slope*r), the AD/SD cost of
+// plane lies on front t = fstep*col + a0 - ssgn*slope*r), the AD/SD cost of
 // each label in flight from the two images, the 1-4 coupled SGM messages
 // from the fronts t -+ lag, the update_cost2 quirk, the 1-pixel border
 // rule, the optional kappa*CC overcount fold and the backward launch's
 // accumulation onto the forward launch's output.
+//
+// One map serves the five spaces: A/B (fstep 1, slope 1 or 2), V
+// (slope 0: front t is column t, every row live) and the parity spaces
+// PA/PB (slope 1, fstep 2: t = 2*col + r or 2*col + R-1-r, so a row is
+// live only on fronts of its parity).  The TPU packs the parity
+// spaces' live half-rows into lanes (pallas_fused._delta_roll); here a
+// block whose row sits out a front leaves at once.
 //
 // What is not carried over is the TPU's blocking: the VMEM ring buffer,
 // the DMA semaphores and the skewed image copies.  The kernel indexes
@@ -17,7 +24,7 @@
 // memory, so the last D fronts live in a global ring (hist/mins) that
 // the 50 MB L2 holds.  Fronts synchronise by kernel boundaries: the C
 // entry point launches one small kernel per front on the caller's
-// stream (T = C + slope*(R-1) launches per direction).
+// stream (T = fstep*(C-1) + slope*(R-1) + 1 launches per direction).
 //
 // Bound: the chain of T dependent launches (launch latency and the
 // short per-front work), plus one write (forward) or read-modify-write
@@ -44,8 +51,11 @@ __global__ void front_kernel(const WaveParams p, int t, int slot_t) {
   const int r = blockIdx.x;
   const int i = blockIdx.y;
   const int l = threadIdx.x;
-  const int col = t - p.plane_a0[i] + p.plane_ssgn[i] * p.slope * r;
-  if (col < 0 || col >= p.C) return;  // the whole block leaves together
+  const int num = t - p.plane_a0[i] + p.plane_ssgn[i] * p.slope * r;
+  // the whole block leaves together: the row has no pixel on front t
+  if (num < 0 || num % p.fstep != 0) return;
+  const int col = num / p.fstep;
+  if (col >= p.C) return;
   const bool act = l < p.L;
   const int n = p.plane_side[i];
 
@@ -132,9 +142,10 @@ extern "C" int mgm_wave_params_size(void) { return (int)sizeof(WaveParams); }
 extern "C" int mgm_fused_wavefront(const WaveParams* params, void* stream) {
   const WaveParams p = *params;
   if (p.L < 1 || p.L > MGM_MAX_LABELS || p.Mp > MGM_MAX_PLANES ||
-      p.Ml > MGM_MAX_RECS || p.mgm < 1 || p.mgm > MGM_MAX_RANKS)
+      p.Ml > MGM_MAX_RECS || p.mgm < 1 || p.mgm > MGM_MAX_RANKS ||
+      p.fstep < 1 || p.slope < 0)
     return (int)cudaErrorInvalidValue;
-  const int T = p.C + p.slope * (p.R - 1);
+  const int T = p.fstep * (p.C - 1) + p.slope * (p.R - 1) + 1;
   const dim3 grid(p.R, p.Mp);
   const int threads = (p.L + 31) / 32 * 32;
   cudaStream_t s = (cudaStream_t)stream;

@@ -19,10 +19,14 @@ struct WaveParams {
   float* mins;         // (D + 1, Ml, R) their minima over labels
   int R, C, L, nch;
   int Mp, Ml, D;       // planes, recursions, deepest front lag
-  int slope, mgm, sd, accumulate, reverse;
+  // slope and fronts per column step of the launch's space: A/B (slope,
+  // 1), V (0, 1), the parity spaces PA/PB (1, 2)
+  int slope, fstep;
+  int mgm, sd, accumulate, reverse;
   float tmax, p1, p2, kappa;
   // plane i: side, label-0 disparity, label window, skew origin and
-  // sign (col = t - a0 + ssgn * slope * r), whether it folds kappa*CC,
+  // sign (col = (t - a0 + ssgn * slope * r) / fstep, the row sitting
+  // out fronts where that does not divide), whether it folds kappa*CC,
   // and the recursions that sum into it, in recursion order
   int plane_side[MGM_MAX_PLANES], plane_gmin[MGM_MAX_PLANES];
   int plane_lo[MGM_MAX_PLANES], plane_hi[MGM_MAX_PLANES];
@@ -64,4 +68,21 @@ struct WtaParams {
   int N, nspaces, R, C, L;
   int side_gmin[MGM_MAX_SIDES], side_lo[MGM_MAX_SIDES],
       side_hi[MGM_MAX_SIDES];
+};
+
+// Pointwise cost families of K8 (the order of cuda_cost.MODES).
+#define MGM_COST_AD 0
+#define MGM_COST_SD 1
+#define MGM_COST_CENSUS 2
+#define MGM_COST_BTAD 3
+#define MGM_COST_BTSD 4
+
+// Raw pointwise cost volume of one image pair (K8).
+struct CostParams {
+  const void* left;    // (H, W, nch) float32, or int32 census words
+  const void* right;   // the same for the right image
+  float* out;          // (H, W, L), labels fastest
+  int H, W, L, nch;    // nch: channels; BT: 3 blocks [I, Imin, Imax]
+  int gmin, mode;      // disparity of label 0; MGM_COST_*
+  float inv_nw;        // census: 1 / nch
 };

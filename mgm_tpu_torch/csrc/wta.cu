@@ -4,7 +4,8 @@
 // (launched by unskew_wta_planes, pallas_fused.py:354).  K1 already
 // writes image layout, so the TPU kernel's unskew (a dynamic lane roll
 // per row) has nothing left to do here.  For every pixel of every side:
-// s = plane_A + plane_B (spaces summed in order), cand = s inside the
+// s = the sum of the nspaces planes, left to right in the space order
+// A, B, V, PA, PB (the JAX assembly's association), cand = s inside the
 // label window where -inf < s < inf (NaN excluded) and +inf elsewhere,
 // cost = min(cand), idx = the lowest label with cand == cost, and
 // disp = gmin + idx.  An all-invalid window gives idx 0 and cost +inf.

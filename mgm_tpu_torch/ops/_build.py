@@ -1,12 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Every `mgm_tpu_torch/csrc/*.cu` goes into ONE shared library with a
-plain C interface (no PyTorch headers, so nvcc takes seconds).  One
-nvcc per source runs at once, then one links them:
+plain C interface (no PyTorch headers, so nvcc takes seconds), in one
+nvcc call:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         --fmad=false -Xcompiler -fPIC -c -o k.o csrc/k.cu   (each k)
-    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o lib.so *.o
+         --fmad=false -Xcompiler -fPIC -Xptxas=-v -shared
+         -o lib.so csrc/*.cu
 
 `--fmad=false` and no fast math keep the kernels' float arithmetic
 operation-for-operation equal to their plain PyTorch versions.  The
@@ -22,15 +22,13 @@ import os
 import shutil
 import subprocess
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
-                     "-fPIC", "-Xptxas=-v")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def _sources() -> list[Path]:
@@ -62,33 +60,24 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "libmgm_kernels.so"
 
 
-def _run(cmd: list[str]) -> str:
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    return res.stdout + res.stderr
-
-
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists:
-    one nvcc per source, all started together, then one link.  The
-    compiler's report (registers, spills) is kept in build.log."""
+    one nvcc call for every source.  The compiler's report (registers,
+    spills) is kept in build.log."""
     lib = library_path()
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
     with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
-        cu = [s for s in _sources() if s.suffix == ".cu"]
-        objs = [os.path.join(tmp, s.stem + ".o") for s in cu]
-        with ThreadPoolExecutor(max_workers=len(cu)) as ex:
-            logs = list(ex.map(
-                lambda so: _run([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
-                                 "-o", so[1], str(so[0])]), zip(cu, objs)))
         out = os.path.join(tmp, lib.name)
-        logs.append(_run([nvcc, *ARCH, "-shared", "-o", out, *objs]))
-        (lib.parent / "build.log").write_text("".join(logs))
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o", out,
+               *cu]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        (lib.parent / "build.log").write_text(res.stdout + res.stderr)
         # a rename, so concurrent builds never see a partial file
         os.replace(out, lib)
     return lib

@@ -99,14 +99,15 @@ def _dir2off(spec: PassSpec):
     return DIAG_DIR2OFF if spec.diag else AXIS_DIR2OFF
 
 
-def _pass_groups(ndir: int, mgm: int):
+def _pass_groups(ndir: int, mgm: int, pids=None):
     """Group the first `ndir` passes into homogeneous batched scans (the
     JAX module's homogeneous=True, what its accelerator path runs): same
     canonical shape (row_major) and same class, so the dir->offset order
     is static.  Knight passes group apart (their offset set and border
-    differ)."""
+    differ).  `pids` restricts grouping to those passes (the fused
+    solve's leftovers)."""
     groups = {}
-    for p in range(ndir):
+    for p in (range(ndir) if pids is None else pids):
         spec = PASS_TABLE[p]
         key = (spec.row_major, "knight" if spec.knight else spec.diag)
         groups.setdefault(key, []).append(p)
@@ -209,10 +210,10 @@ def _run_group(pids, cc, w8, lo, hi, *, p1, p2, mgm, use_fh, use_weights,
 def aggregate(cc, w8=None, lo=None, hi=None, *, p1: float, p2: float,
               ndir: int, mgm: int, use_fh: bool = False,
               use_weights: bool = False, fh_restrict: bool = False,
-              hpad: int = 0):
-    """Sum over the first `ndir` directional passes of the aggregated
-    volumes Lr (before the S-window clip / overcount fix, which the
-    solver applies).
+              pids: tuple | None = None, hpad: int = 0):
+    """Sum over the first `ndir` directional passes (or over `pids`) of
+    the aggregated volumes Lr (before the S-window clip / overcount
+    fix, which the solver applies).
 
     cc: (N, H, W, L) dense costs with +inf outside label windows.
     w8: (N, H, W, 8) edge weights (channel order W,E,S,N,NW,NE,SE,SW,
@@ -230,7 +231,7 @@ def aggregate(cc, w8=None, lo=None, hi=None, *, p1: float, p2: float,
         # min-conv instead of the window-restricted one (mgm_core.cc:208)
         fh_restrict = not ((mgm == 2) and (not use_weights))
     out = None
-    for gp in _pass_groups(ndir, mgm):
+    for gp in _pass_groups(ndir, mgm, pids):
         part = _run_group(gp, cc, w8, lo, hi, p1=p1, p2=p2, mgm=mgm,
                           use_fh=use_fh, use_weights=use_weights,
                           fh_restrict=fh_restrict)

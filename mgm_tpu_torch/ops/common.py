@@ -38,6 +38,31 @@ def shift_edge(a: torch.Tensor, off: int, axis: int) -> torch.Tensor:
     return a.index_select(axis, idx.clamp(0, n - 1))
 
 
+def pad_cols(a: torch.Tensor, gmin: int, L: int):
+    """Edge-pad the columns of (H, W, C) so every disparity
+    d = gmin..gmin+L-1 becomes the slice a_pad[:, x + d - gmin + left];
+    returns (a_pad, left).  Out-of-image labels are masked to trunc_dist
+    by build_cost_volume."""
+    W = a.shape[1]
+    left = max(0, -gmin)
+    right = max(0, gmin + L - 1)
+    idx = torch.arange(-left, W + right, device=a.device).clamp(0, W - 1)
+    return a.index_select(1, idx), left
+
+
+def shifted_cols(a_pad, left: int, gmin: int, l: int, W: int):
+    """Column slice of pad_cols' image for label l (disparity gmin+l)."""
+    return a_pad.narrow(1, left + gmin + l, W)
+
+
+def chsum(d: torch.Tensor) -> torch.Tensor:
+    """Sum over the last (channel) axis, left to right."""
+    out = d[..., 0]
+    for c in range(1, d.shape[-1]):
+        out = out + d[..., c]
+    return out
+
+
 def fmin3(a, b, c):
     return torch.minimum(torch.minimum(a, b), c)
 

@@ -17,8 +17,19 @@ main path went through the kernels.
 Layouts differ from the TPU's: images stay unskewed, (N, R, C, nch)
 per side, and K1 writes the image-layout volume (Mp, R, C, L), plane
 i = space_index * N + side.  Pixel (r, col) of a plane lies on front
-t = col + a0 - ssgn*slope*r (space A: a0 = 0, ssgn = -1; space B:
-a0 = slope*(R-1), ssgn = +1), so the front count is C + slope*(R-1).
+t = fstep*col + a0 - ssgn*slope*r, so a launch has
+T = fstep*(C-1) + slope*(R-1) + 1 fronts:
+
+  space   slope   fstep   a0              ssgn
+  A       s       1       0               -1
+  B       s       1       s*(R-1)         +1
+  V       0       1       0               -1
+  PA      1       2       0               -1
+  PB      1       2       R-1             +1
+
+(s = 1 or 2).  In the parity spaces a row sits out every other front;
+the TPU packs the live half-rows into lanes, the port keeps the image
+layout and skips them.
 """
 from __future__ import annotations
 
@@ -40,7 +51,7 @@ class _WaveParams(ctypes.Structure):
         [(f, ctypes.c_void_p) for f in ("left", "right", "out", "hist",
                                         "mins")]
         + [(f, ctypes.c_int) for f in ("R", "C", "L", "nch", "Mp", "Ml",
-                                       "D", "slope", "mgm", "sd",
+                                       "D", "slope", "fstep", "mgm", "sd",
                                        "accumulate", "reverse")]
         + [(f, ctypes.c_float) for f in ("tmax", "p1", "p2", "kappa")]
         + [(f, ctypes.c_int * MAX_PLANES)
@@ -94,38 +105,48 @@ def _stream(device) -> int:
 
 # ---------------------------------------------------------------- K1 ----
 
-def _valid_rows(t: int, a0: int, ssgn: int, slope: int, C: int, R: int):
-    """[r0, r1) rows whose pixel on front t lies inside the image:
-    0 <= t - a0 + ssgn*slope*r < C."""
-    base = t - a0
-    if ssgn < 0:   # col = base - slope*r
-        r0, r1 = -((C - 1 - base) // slope), base // slope + 1
-    else:          # col = base + slope*r
-        r0, r1 = -(base // slope), (C - 1 - base) // slope + 1
-    return max(r0, 0), min(r1, R)
+def _valid_rows(t: int, a0: int, ssgn: int, slope: int, C: int, R: int,
+                fstep: int) -> range:
+    """The rows with a pixel on front t inside the image: those whose
+    num = t - a0 + ssgn*slope*r is a multiple of fstep with
+    0 <= num / fstep < C (fstep 2 only at slope 1)."""
+    base, top = t - a0, fstep * (C - 1)
+    if slope == 0:
+        live = 0 <= base <= top and base % fstep == 0
+        return range(R if live else 0)
+    if ssgn < 0:   # num = base - slope*r
+        r0, r1 = -((top - base) // slope), base // slope + 1
+    else:          # num = base + slope*r
+        r0, r1 = -(base // slope), (top - base) // slope + 1
+    r0 = max(r0, 0)
+    if fstep == 2:  # slope 1: num's parity is (base + r)'s
+        r0 += (base + r0) % 2
+    return range(r0, min(r1, R), fstep)
 
 
-def fused_wavefront_plain(left, right, acc, *, planes, mspecs, combos, L,
-                          slope, mgm, mode, tmax, p1, p2, kappa, reverse):
+def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
+                          combos, L, slope, fstep, mgm, mode, tmax, p1, p2,
+                          kappa, reverse):
     """Plain PyTorch version of K1: a loop over fronts with tensor ops
     over (planes or recursions, R, L), in the fused kernel's order of
     operations (pallas_fused.py:834-949), not the dense solver's.
 
     left/right: (N, R, C, nch) float32 images per side.
-    acc: None (forward launch) or the forward output to add onto.
+    out: the (Mp, R, C, L) volume the launch writes, or adds onto with
+      `accumulate` (the backward launch onto the forward one's output).
     planes: (side, gmin, lo, hi, a0, ssgn, fold) per output plane.
+    slope, fstep: the launch space's front map (module docstring).
     mspecs: (plane, ranks, border) per recursion; ranks index `combos`,
       border = (need_left, need_right, need_top, need_bottom).
     combos: (lag, roll) per distinct message source: the front t -+ lag,
       row r - roll.
-    Returns the (Mp, R, C, L) volume (acc itself when given)."""
+    Returns `out`."""
     dev = left.device
     _, R, C, nch = left.shape
     Mp, Ml = len(planes), len(mspecs)
     D = max(lag for lag, _ in combos)
-    T = C + slope * (R - 1)
+    T = fstep * (C - 1) + slope * (R - 1) + 1
     f32 = dict(dtype=torch.float32, device=dev)
-    out = acc if acc is not None else torch.empty((Mp, R, C, L), **f32)
 
     def field(k):
         """Field k of every plane as an int64 tensor."""
@@ -146,8 +167,9 @@ def fused_wavefront_plain(left, right, acc, *, planes, mspecs, combos, L,
              torch.full((Ml, R), INF, **f32))] * D
 
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        col = t - a0 + ssgn * slope * rows          # (Mp, R)
-        valid = (col >= 0) & (col < C)
+        num = t - a0 + ssgn * slope * rows          # (Mp, R)
+        col = num // fstep
+        valid = (num >= 0) & (num % fstep == 0) & (col < C)
         u_t = U[pidx, rows, col.clamp(0, C - 1)]    # (Mp, R, nch)
         q = col[..., None] + gmin + lab             # (Mp, R, L)
         v_t = V[pidx[..., None], rows[:, None], q.clamp(0, C - 1)]
@@ -202,16 +224,16 @@ def fused_wavefront_plain(left, right, acc, *, planes, mspecs, combos, L,
             sums[pi] = new_m if sums[pi] is None else sums[pi] + new_m
 
         for i, (_, _, _, _, pa0, pss, fold) in enumerate(planes):
-            r0, r1 = _valid_rows(t, pa0, pss, slope, C, R)
-            if r0 >= r1:
+            live = _valid_rows(t, pa0, pss, slope, C, R, fstep)
+            if not live:
                 continue
             o = sums[i] if sums[i] is not None else torch.zeros_like(cc[i])
             if fold:
                 o = o + kappa * cc[i]
-            rr = rows[r0:r1]
-            cols = col[i, r0:r1]
-            o = o[r0:r1]
-            if acc is not None:
+            rr = rows[live.start:live.stop:live.step]
+            cols = col[i, rr]
+            o = o[rr]
+            if accumulate:
                 o = out[i, rr, cols] + o
             out[i, rr, cols] = o
         new = torch.stack(news)
@@ -219,34 +241,33 @@ def fused_wavefront_plain(left, right, acc, *, planes, mspecs, combos, L,
     return out
 
 
-def fused_wavefront(left, right, acc, *, planes, mspecs, combos, L, slope,
-                    mgm, mode, tmax, p1, p2, kappa, reverse):
+def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
+                    L, slope, fstep, mgm, mode, tmax, p1, p2, kappa, reverse):
     """K1: one scan direction of the fused recursion (arguments as in
     fused_wavefront_plain).  CPU tensors take the plain version; CUDA
     tensors launch csrc/fused_wavefront.cu, T front kernels on the
     current stream."""
-    kw = dict(planes=planes, mspecs=mspecs, combos=combos, L=L, slope=slope,
-              mgm=mgm, mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
+    kw = dict(accumulate=accumulate, planes=planes, mspecs=mspecs,
+              combos=combos, L=L, slope=slope, fstep=fstep, mgm=mgm,
+              mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
               reverse=reverse)
     dev = left.device
     if dev.type == "cpu":
-        return fused_wavefront_plain(left, right, acc, **kw)
+        return fused_wavefront_plain(left, right, out, **kw)
     if dev.type != "cuda":
         raise ValueError(f"fused_wavefront: unsupported device {dev}")
     N, R, C, nch = left.shape
     Mp, Ml, nco = len(planes), len(mspecs), len(combos)
     if (Mp > MAX_PLANES or Ml > MAX_RECS or nco > MAX_COMBOS
             or not 1 <= mgm <= MAX_RANKS or not 1 <= L <= MAX_LABELS
-            or mode not in ("ad", "sd")):
+            or mode not in ("ad", "sd") or slope < 0 or fstep < 1):
         raise ValueError(f"fused_wavefront: outside the kernel's limits "
                          f"(planes {Mp}, recursions {Ml}, combos {nco}, "
-                         f"mgm {mgm}, L {L}, mode {mode!r})")
+                         f"mgm {mgm}, L {L}, mode {mode!r}, slope {slope}, "
+                         f"fstep {fstep})")
     _check("left", left, (N, R, C, nch), dev)
     _check("right", right, (N, R, C, nch), dev)
-    out = acc
-    if out is None:
-        out = torch.empty((Mp, R, C, L), dtype=torch.float32, device=dev)
-    _check("acc", out, (Mp, R, C, L), dev)
+    _check("out", out, (Mp, R, C, L), dev)
     D = max(lag for lag, _ in combos)
     hist = torch.empty((D + 1, Ml, R, L), dtype=torch.float32, device=dev)
     mins = torch.empty((D + 1, Ml, R), dtype=torch.float32, device=dev)
@@ -254,8 +275,9 @@ def fused_wavefront(left, right, acc, *, planes, mspecs, combos, L, slope,
     p = _WaveParams(
         left=left.data_ptr(), right=right.data_ptr(), out=out.data_ptr(),
         hist=hist.data_ptr(), mins=mins.data_ptr(), R=R, C=C, L=L, nch=nch,
-        Mp=Mp, Ml=Ml, D=D, slope=slope, mgm=mgm, sd=int(mode == "sd"),
-        accumulate=int(acc is not None), reverse=int(reverse),
+        Mp=Mp, Ml=Ml, D=D, slope=slope, fstep=fstep, mgm=mgm,
+        sd=int(mode == "sd"),
+        accumulate=int(accumulate), reverse=int(reverse),
         tmax=tmax, p1=p1, p2=p2, kappa=kappa)
     for i, (side, gmin, lo, hi, a0, ssgn, fold) in enumerate(planes):
         recs = [m for m, spec in enumerate(mspecs) if spec[0] == i]

@@ -9,17 +9,27 @@ A (t = c + slope*r) or B (t = c + slope*(R-1-r)); antipodal passes land
 in one space with opposite scan directions, so the backward launch
 accumulates onto the forward launch's planes.
 
-`mgm_solve_fused` ports the A/B-group, fused-WTA case of the JAX solve
-(fused.py:582-597): constant label windows, SGM potential, unit
-weights, ad/sd costs.  The V and packed-parity spaces, the dense
-leftover passes and every other option raise NotImplementedError and
-name the ROADMAP item that adds them.
+`mgm_solve_fused` ports the JAX solve (fused.py:512-672) for every
+schedule of `split_passes` (ndir 1-16, TSGM 1-4) with constant label
+windows, the SGM potential, unit weights and ad/sd costs.  Every group
+(A/B, V, PA/PB) runs through K1 into one image-layout volume with the
+spaces in the order A, B, V, PA, PB.  Without leftover passes K2 sums
+the spaces and takes the WTA.  With them (ndir > 8) the knight passes
+run dense: K8 builds the cost volumes, `aggregate` runs K6 -> K5 -> K7
+on the leftover passes, and the S assembly and WTA are tensor code.
+The TPU's K3 (`pallas_fused.unskew_planes`) has no counterpart: K1
+already stores the image layout, so the assembled sum has nothing to
+unskew.  FH, in-flight census/BT costs, weights, per-pixel windows
+and batches raise NotImplementedError and name their ROADMAP item.
 """
 from __future__ import annotations
 
 import torch
 
+from ..solver import window_wta
 from . import cuda_fused
+from .aggregate import aggregate
+from .cost import build_cost_volume
 
 # image-space causal dirs dir1..dir4 per pass (mgm_core.cc:463-471);
 # (dx, dy) with dy the row offset
@@ -148,70 +158,123 @@ def split_passes(ndir: int, mgm: int):
     return groups, leftover
 
 
-def _ab_group(ndir: int, mgm: int):
-    """The one skewed A/B group scheduling every pass of (ndir, mgm);
-    NotImplementedError when a pass needs another space or the dense
-    path."""
-    groups, leftover = split_passes(ndir, mgm)
-    if leftover:
-        raise NotImplementedError(f"passes {leftover} need the dense "
-                                  "leftover solve with K8: ROADMAP queue 1 "
-                                  "item 5")
-    if len(groups) != 1 or groups[0][0] <= 0:
-        raise NotImplementedError("the V and packed-parity spaces: ROADMAP "
-                                  "queue 1 item 5")
-    return groups[0]
+def _space_map(space: str, slope: int, R: int):
+    """K1's front map of `space` in a group of `slope` (cuda_fused's
+    module docstring): (slope, fstep, a0, ssgn)."""
+    return {"A": (slope, 1, 0, -1), "B": (slope, 1, slope * (R - 1), 1),
+            "V": (0, 1, 0, -1), "PA": (1, 2, 0, -1),
+            "PB": (1, 2, R - 1, 1)}[space]
 
 
-def ab_launches(group, sides, *, R: int, kappa: float):
-    """Per-launch kernel arguments of one skewed A/B group
-    (fused.py:333-431): planes, mspecs, combos, slope and reverse.
+def group_launches(group, sides, *, R: int, kappa: float, fold: bool):
+    """Per-launch K1 arguments of one group of split_passes
+    (fused.py:333-431): planes, mspecs, combos, slope, fstep and
+    reverse.
 
-    group: (slope, spaces, launches) from split_passes; sides: (gmin, lo,
-    hi) per side.  planes = (side, gmin, lo, hi, a0, ssgn, fold),
-    space-major; the overcount fold kappa*CC sits on each side's
-    first-space plane, in the first launch only."""
-    slope, spaces, launches = group
-    a0 = {"A": 0, "B": slope * (R - 1)}
-    ssgn = {"A": -1, "B": 1}
+    group: (slope, spaces, launches); sides: (gmin, lo, hi) per side.
+    planes = (side, gmin, lo, hi, a0, ssgn, fold), space-major.  With
+    `fold`, the overcount kappa*CC sits on each side's first-space
+    plane, in the first launch only.  The parity spaces' ranks are
+    (lag, dy) (`_assign`); K1 reads the row r - roll, so they become
+    (lag, -dy), the other spaces' form."""
+    gslope, spaces, launches = group
+    maps = {sp: _space_map(sp, gslope, R) for sp in spaces}
     plane_ix, planes = {}, []
     for space in spaces:
+        _, _, a0, ssgn = maps[space]
         for n, (gmin, lo, hi) in enumerate(sides):
             plane_ix[(n, space)] = len(planes)
-            fold = space == spaces[0] and kappa != 0.0
-            planes.append((n, gmin, lo, hi, a0[space], ssgn[space], fold))
+            f = fold and space == spaces[0] and kappa != 0.0
+            planes.append((n, gmin, lo, hi, a0, ssgn, f))
+    slope, fstep = maps[spaces[0]][:2]
     out = []
     for k, (d, passes) in enumerate(launches):
+        recs = []
+        for _, space, ranks, border in passes:
+            if fstep == 2:
+                ranks = tuple((lag, -dy) for lag, dy in ranks)
+            recs.append((space, ranks, border))
         combos = []
-        for _, _, ranks, _ in passes:
+        for _, ranks, _ in recs:
             combos += [c for c in ranks if c not in combos]
         mspecs = tuple((plane_ix[(n, space)],
                         tuple(combos.index(c) for c in ranks), border)
-                       for _, space, ranks, border in passes
+                       for space, ranks, border in recs
                        for n in range(len(sides)))
         lp = tuple(planes) if k == 0 else tuple(p[:6] + (False,)
                                                 for p in planes)
         out.append(dict(planes=lp, mspecs=mspecs, combos=tuple(combos),
-                        slope=slope, reverse=d == "bwd"))
+                        slope=slope, fstep=fstep, reverse=d == "bwd"))
     return out
 
 
-def fused_planes(lefts, rights, *, sides, L: int, ndir: int, mgm: int,
+def fused_planes(lefts, rights, *, sides, L: int, groups, mgm: int,
                  p1: float, p2: float, mode: str, tmax: float, kappa: float,
                  wavefront=None):
-    """Every launch of the A/B group through `wavefront`: K1
-    (cuda_fused.fused_wavefront) when None; tests and the smoke run pass
-    its plain version to compare.
+    """Every launch of `groups` (from split_passes) through `wavefront`:
+    K1 (cuda_fused.fused_wavefront) when None; tests and the smoke run
+    pass its plain version to compare.  The first group folds kappa*CC
+    (JAX's fold_group, fused.py:456-464).
 
     lefts/rights: (N, R, C, nch) float32 images per side.  Returns the
-    (nspaces * N, R, C, L) volume and nspaces."""
-    group = _ab_group(ndir, mgm)
+    (nspaces * N, R, C, L) volume, spaces in the order A, B, V, PA, PB
+    (each group's launches write one contiguous slice of planes), and
+    nspaces."""
     wavefront = wavefront or cuda_fused.fused_wavefront
-    out = None
-    for kw in ab_launches(group, sides, R=lefts.shape[1], kappa=kappa):
-        out = wavefront(lefts, rights, out, L=L, mgm=mgm, mode=mode,
-                        tmax=tmax, p1=p1, p2=p2, kappa=kappa, **kw)
-    return out, len(group[1])
+    N, R, C, _ = lefts.shape
+    nspaces = sum(len(spaces) for _, spaces, _ in groups)
+    vol = torch.empty((nspaces * N, R, C, L), dtype=torch.float32,
+                      device=lefts.device)
+    first = 0
+    for g, group in enumerate(groups):
+        part = vol[first * N:(first + len(group[1])) * N]
+        first += len(group[1])
+        for k, kw in enumerate(group_launches(group, sides, R=R, kappa=kappa,
+                                              fold=g == 0)):
+            wavefront(lefts, rights, part, accumulate=k > 0, L=L, mgm=mgm,
+                      mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa, **kw)
+    return vol, nspaces
+
+
+def assemble_groups(vol, *, nspaces: int, N: int):
+    """The materialised per-side sum (N, R, C, L) of the spaces, left to
+    right (((A + B) + V) + PA) + PB, the association order of K2 and of
+    the JAX assembly (fused.py:471-505).  K1 stores the image layout, so
+    no unskew (the TPU's K3) is needed."""
+    total = vol[:N]
+    for si in range(1, nspaces):
+        total = total + vol[si * N:(si + 1) * N]
+    return total
+
+
+def assemble_swta(lsum, *, sides, L: int, fix_overcount: bool):
+    """S assembly + WTA from the fold-included sum of the aggregated
+    volumes, for constant per-side windows (fused.py:675-702).
+    Returns (S, disp, cost)."""
+    lab = torch.arange(L, device=lsum.device)
+    in_cc = torch.stack([(lab >= lo) & (lab <= hi)
+                         for _, lo, hi in sides])[:, None, None, :]
+    # 0 - (NDIR-1)*INFINITY outside the CC window, as the dense solver
+    # computes it (leftover passes mean ndir > 8, so -inf)
+    outside = -float("inf") if fix_overcount else 0.0
+    s_raw = torch.where(in_cc, lsum, outside)
+    gmin = torch.tensor([g for g, _, _ in sides], dtype=torch.int32)
+    return window_wta(s_raw, in_cc, gmin)
+
+
+def _dense_cc(lefts, rights, *, sides, L: int, mode: str,
+              trunc_dist: float):
+    """(N, H, W, L) dense cost volumes of each side (through K8), for the
+    leftover passes (fused.py:621-639)."""
+    _, H, W, _ = lefts.shape
+    ccs = []
+    for n, (gmin, lo, hi) in enumerate(sides):
+        full = dict(dtype=torch.int32, device=lefts.device)
+        ccs.append(build_cost_volume(
+            lefts[n], rights[n], torch.full((H, W), lo, **full),
+            torch.full((H, W), hi, **full), gmin, distance=mode, L=L,
+            trunc_dist=trunc_dist))
+    return torch.stack(ccs)
 
 
 def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, *, sides, L: int,
@@ -219,9 +282,11 @@ def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, *, sides, L: int,
                     nch: int, trunc_dist: float, fix_overcount: bool,
                     use_fh: bool = False):
     """One MGM solve from preprocessed (H, W, Cch) float32 images, costs
-    fused into the recursion, straight to the winner-take-all (the JAX
-    solve's want_S=False, const_sw=True branch).  Side n >= 1 (the LR
-    check's right solve) swaps the images.
+    fused into the recursion (the JAX solve with want_S=False and
+    constant windows).  Side n >= 1 (the LR check's right solve) swaps
+    the images.  Without leftover passes the spaces go straight to K2's
+    WTA; with them the sum is materialised, the knight passes are added
+    from the dense path, and S is assembled (fused.py:582-672).
 
     sides: (gmin, lo, hi) ints per side.  Returns (disp, cost), each
     (N, H, W) float32 on the images' device."""
@@ -236,8 +301,25 @@ def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, *, sides, L: int,
     N = len(sides)
     lefts = torch.stack([u_p, v_p][:N]).contiguous()
     rights = torch.stack([v_p, u_p][:N]).contiguous()
+    groups, leftover = split_passes(ndir, mgm)
+    kappa = -float(ndir - 1) if fix_overcount else 0.0
+    # with leftover passes the overcount folds on the dense volume
+    # (fused.py:619, 647)
     vol, nspaces = fused_planes(
-        lefts, rights, sides=sides, L=L, ndir=ndir, mgm=mgm, p1=p1, p2=p2,
-        mode=mode, tmax=trunc_dist * nch,
-        kappa=-float(ndir - 1) if fix_overcount else 0.0)
-    return cuda_fused.wta(vol, nspaces=nspaces, sides=sides)
+        lefts, rights, sides=sides, L=L, groups=groups, mgm=mgm, p1=p1,
+        p2=p2, mode=mode, tmax=trunc_dist * nch,
+        kappa=0.0 if leftover else kappa)
+    if not leftover:
+        return cuda_fused.wta(vol, nspaces=nspaces, sides=sides)
+    lsum = assemble_groups(vol, nspaces=nspaces, N=N)
+    del vol
+    cc = _dense_cc(lefts, rights, sides=sides, L=L, mode=mode,
+                   trunc_dist=trunc_dist)
+    part = aggregate(cc, p1=p1, p2=p2, ndir=ndir, mgm=mgm,
+                     pids=tuple(leftover))
+    if fix_overcount:
+        part = part + kappa * cc
+    del cc
+    _, disp, cost = assemble_swta(lsum + part, sides=sides, L=L,
+                                  fix_overcount=fix_overcount)
+    return disp, cost

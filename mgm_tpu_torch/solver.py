@@ -46,10 +46,17 @@ def mgm_solve(cc, w8, lo, hi, s_lo, s_hi, gmin, *, p1: float, p2: float,
                              device=cc.device)
         s_raw = s_raw - kappa * cc_inf
         del cc_inf
+    return window_wta(s_raw, in_s, gmin)
+
+
+def window_wta(s_raw, in_s, gmin):
+    """S = s_raw inside the S windows (+inf elsewhere) and its WTA: the
+    first minimal finite label.  s_raw: (N, H, W, L); in_s: a mask
+    broadcasting to it; gmin: (N,) label-0 disparities.  Returns
+    (S, disp, cost)."""
     S = torch.where(in_s, s_raw, INF)
-    del s_raw
     cand = torch.where(torch.isfinite(S), S, INF)
     idx = cand.argmin(-1)   # the first minimal label, as jnp.argmin
     cost = cand.amin(-1)
-    disp = (gmin.to(cc.device)[:, None, None] + idx).to(torch.float32)
+    disp = (gmin.to(S.device)[:, None, None] + idx).to(torch.float32)
     return S, disp, cost

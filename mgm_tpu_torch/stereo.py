@@ -9,9 +9,12 @@ Two solve branches, chosen as the JAX pipeline's `_fused_backend`
 chooses them: NCC costs take the dense branch (the (N, H, W, L) cost
 volume, then `solver.mgm_solve` through the K6/K5/K7 kernels, then
 subpixel refinement); every other cost family takes the fused branch
-(costs in flight in K1, WTA in K2).  This slice covers constant
-disparity windows, one iteration and no prefilter; the rest raises
-NotImplementedError naming the ROADMAP item that adds it.
+(`ops/fused.mgm_solve_fused`: costs in flight in K1 for every pass
+schedule of 1-16 directions at TSGM 1-4, WTA in K2, and the knight
+passes of ndir > 8 through K8 and K6/K5/K7).  The port covers constant
+disparity windows, one iteration and no prefilter, and the fused
+branch ad/sd costs with the SGM potential and unit weights; the rest
+raises NotImplementedError naming the ROADMAP item that adds it.
 """
 from __future__ import annotations
 

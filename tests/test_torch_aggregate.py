@@ -9,9 +9,10 @@ pallas_wavefront._front_update.  Tolerances:
     kernel and XLA: equal inf masks and signs, finite values within
     atol 2e-3, rtol 1e-6 (XLA divides by 3 and sums mixed mgm-4 pass
     groups in another order);
-  - pointwise cost volumes: bitwise; NCC: bitwise against mgm_tpu's
-    _ncc_costs run op by op (eagerly), and within atol 2e-3 of the
-    jitted builder, whose fusions round differently.
+  - pointwise cost volumes (K8's plain version): bitwise; NCC: bitwise
+    against mgm_tpu's _ncc_costs run op by op (eagerly), and within
+    atol 2e-3 of the jitted build_cost_volume, whose fusions round
+    differently.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -89,6 +90,26 @@ def test_aggregate_matches_jax(name):
         check_close(want, got)
 
 
+def test_aggregate_pids_matches_jax():
+    """The passes `pids` alone (the fused solve's leftovers): one knight
+    pass at mgm 1 (bitwise), all eight at mgm 2, a mixed set at mgm 4.
+    One test, not three: this file stays behind test_sharding.py in
+    xdist's --dist loadfile order, which sorts files by test count."""
+    cc, _, lo, hi = make_problem(np.random.default_rng(4))
+    for ndir, mgm, pids in ((9, 1, (8,)), (16, 2, tuple(range(8, 16))),
+                            (16, 4, (0, 9, 12, 15))):
+        kw = dict(p1=8.0, p2=32.0, ndir=ndir, mgm=mgm, pids=pids)
+        want = np.asarray(jagg.aggregate(_j(cc), None, _j(lo), _j(hi),
+                                         backend="xla", **kw))
+        got = tagg.aggregate(_t(cc), None, _t(lo), _t(hi), **kw).numpy()
+        if mgm == 1:
+            assert_bitwise(got, want)
+        else:
+            check_close(want, got)
+        assert tagg._pass_groups(ndir, mgm, pids) == jagg._pass_groups(
+            ndir, mgm, homogeneous=True, pids=pids)
+
+
 def test_pass_groups_are_the_accelerator_groups():
     for ndir in (1, 2, 4, 8, 16):
         for mgm in (1, 2, 3, 4):
@@ -141,8 +162,8 @@ def test_census_costs_bitwise():
     want = np.asarray(jcost.pointwise_costs(jnp.asarray(cu), jnp.asarray(cv),
                                             -3, 7, "census", 5,
                                             backend="xla"))
-    got = tcost.pointwise_costs(torch.from_numpy(cu.astype(np.int64)),
-                                torch.from_numpy(cv.astype(np.int64)), -3, 7,
+    got = tcost.pointwise_costs(torch.from_numpy(cu.view(np.int32)),
+                                torch.from_numpy(cv.view(np.int32)), -3, 7,
                                 "census", 5).numpy()
     assert_bitwise(got, want)
 
@@ -167,6 +188,8 @@ def test_ncc_volume():
 
 
 def test_pointwise_off_the_cpu_needs_k8():
+    """Off the CPU the pointwise families need K8, which runs on CUDA
+    only: any other device raises."""
     meta = torch.empty((4, 6, 1), device="meta")
-    with pytest.raises(NotImplementedError, match="K8.*ROADMAP"):
+    with pytest.raises(ValueError, match="device"):
         tcost.pointwise_costs(meta, meta, 0, 3, "ad", 3)

@@ -1,14 +1,15 @@
 """The port's fused solve against mgm_tpu.
 
 The scheduling must equal mgm_tpu's exactly.  The solve (the plain
-PyTorch versions of the two kernels on CPU) is held against
+PyTorch versions of the kernels on CPU: K1 and K2, and for ndir > 8
+K8 and K6/K5/K7 on the knight passes) is held against
 mgm_tpu.solver.mgm_solve, the JAX package's dense XLA path.  The two
 sum in different orders (the fused path folds kappa*CC per space and
-sums the spaces A then B; docs/ARCHITECTURE.md "Numerical-parity
-policy"), so the rule of tests/test_fused.py applies: equal finite
-masks, costs within 3e-5 * scale, and disparities that differ only at
-argmin ties.  At TSGM = 1 every order is exact (min-plus over the
-integers of integer images): bitwise.
+sums the spaces A, B, V, PA, PB; docs/ARCHITECTURE.md
+"Numerical-parity policy"), so the rule of tests/test_fused.py
+applies: equal finite masks, costs within 3e-5 * scale, and
+disparities that differ only at argmin ties.  At TSGM = 1 every order
+is exact (min-plus over the integers of integer images): bitwise.
 
 The kernels against their plain versions are in test_torch_kernels.py,
 which needs no JAX and so runs on a machine with a card.
@@ -62,6 +63,17 @@ CASES = [
     dict(ndir=4, mgm=2, fix=False), dict(ndir=4, mgm=1, fix=False),
     dict(ndir=4, mgm=1, mode="sd"), dict(ndir=4, mgm=2, mode="sd"),
     dict(ndir=4, mgm=2, trunc=20.0), dict(ndir=4, mgm=1, trunc=20.0),
+    # the V group (slope 0)
+    dict(ndir=8, mgm=2, groups=(2, 0), D=3),
+    dict(ndir=8, mgm=3, groups=(2, 0), D=3),
+    # the packed-parity group (P_SLOPE): PB alone, PA + PB
+    dict(ndir=4, mgm=4, groups=(2, -1), D=3),
+    dict(ndir=8, mgm=4, groups=(2, -1), D=3),
+    # knight passes left over for the dense path
+    dict(ndir=9, mgm=1, left=1, D=2), dict(ndir=16, mgm=1, left=8, D=2),
+    dict(ndir=16, mgm=2, groups=(2, 0), left=8, D=3),
+    dict(ndir=16, mgm=4, groups=(2, -1), left=8, D=3),
+    dict(ndir=16, mgm=2, groups=(2, 0), left=8, D=3, mode="sd"),
 ]
 
 
@@ -71,12 +83,14 @@ def test_plain_solve_matches_dense(rng, case):
     kw = dict(lr=True, mode="ad", trunc=float("inf"), fix=True)
     kw.update(case)
     ndir, mgm = kw["ndir"], kw["mgm"]
-    # the schedule's slope and deepest front lag (D)
-    (slope, _, launches), = tfused.split_passes(ndir, mgm)[0]
-    assert slope == kw.get("slope", 1)
-    lags = [lag for _, ms in launches for *_, ranks, _ in ms
-            for lag, _ in ranks]
+    # the schedule's group slopes, deepest front lag (D) and leftovers
+    groups, leftover = tfused.split_passes(ndir, mgm)
+    assert tuple(g[0] for g in groups) == kw.get("groups",
+                                                 (kw.get("slope", 1),))
+    lags = [lag for _, _, launches in groups for _, ms in launches
+            for *_, ranks, _ in ms for lag, _ in ranks]
     assert max(lags) == kw.get("D", 1)
+    assert len(leftover) == kw.get("left", 0)
 
     H, W, C, dmin, dmax = 18, 29, 2, -6, 4
     u, v = _pair(rng, H, W, C)
@@ -106,12 +120,14 @@ def test_plain_solve_matches_dense(rng, case):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(ndir=4, mgm=4), dict(ndir=8, mgm=2), dict(ndir=9, mgm=1),
+    dict(mode="btad"), dict(mode="btsd"), dict(batch=2),
     dict(mode="census"), dict(use_fh=True),
 ], ids=lambda c: str(sorted(c.items())))
 def test_unsupported_raise(bad):
-    """What the slice leaves out raises, naming the ROADMAP item."""
-    u = torch.zeros((4, 5, 1))
+    """What the port leaves out raises, naming the ROADMAP item."""
+    bad = dict(bad)
+    u = torch.zeros((bad.pop("batch"), 4, 5, 1) if "batch" in bad
+                    else (4, 5, 1))
     kw = dict(sides=((-2, 0, 4),), L=5, ndir=4, mgm=2, p1=8.0, p2=32.0,
               mode="ad", nch=1, trunc_dist=float("inf"), fix_overcount=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -15,11 +15,16 @@ import torch
 from mgm_tpu_torch import MGMConfig, compute_disparity
 from mgm_tpu_torch.models import get_preset
 from mgm_tpu_torch.mrf import solve_mrf
-from mgm_tpu_torch.ops import _build, cuda_fused
+from mgm_tpu_torch.ops import _build, cuda_cost, cuda_fused
 from mgm_tpu_torch.ops import aggregate as tagg
 from mgm_tpu_torch.ops import fused as tfused
 from mgm_tpu_torch.ops import wavefront as wf
 from mgm_tpu_torch.synthetic import synthetic_mrf, synthetic_pair
+
+# The CPU cases are tiny: one intra-op thread, so torch's idle pool does
+# not spin on the cores that parallel test processes share.  The other
+# torch test files import this module, so the setting holds there too.
+torch.set_num_threads(1)
 
 
 def assert_bitwise(got, want):
@@ -49,29 +54,37 @@ def cuda():
     return torch.device("cuda")
 
 
-def _solve_planes(fn, u, v, *, ndir, mgm, sides, L, device, mode="ad"):
-    """Both launches of a solve through `fn` (the kernel or its plain
-    version); returns the volume and the group's space count."""
+def _solve_planes(fn, u, v, *, ndir, mgm, sides, L, device, mode="ad",
+                  group=None):
+    """Every launch of a solve's fused groups (or of its group number
+    `group` alone) through `fn` (the kernel or its plain version);
+    returns the volume and its space count."""
     n = len(sides)
     lefts = torch.from_numpy(np.stack([u, v][:n])).to(device)
     rights = torch.from_numpy(np.stack([v, u][:n])).to(device)
     C = u.shape[-1]
-    return tfused.fused_planes(lefts, rights, sides=sides, L=L, ndir=ndir,
-                               mgm=mgm, p1=8.0 * C, p2=32.0 * C, mode=mode,
-                               tmax=float("inf"), kappa=-float(ndir - 1),
-                               wavefront=fn)
+    groups = tfused.split_passes(ndir, mgm)[0]
+    if group is not None:
+        groups = groups[group:group + 1]
+    return tfused.fused_planes(lefts, rights, sides=sides, L=L,
+                               groups=groups, mgm=mgm, p1=8.0 * C,
+                               p2=32.0 * C, mode=mode, tmax=float("inf"),
+                               kappa=-float(ndir - 1), wavefront=fn)
 
 
-@pytest.mark.parametrize("slope,a0,ssgn", [(1, 0, -1), (2, 0, -1),
-                                           (1, 17, 1), (2, 34, 1)])
-def test_valid_rows_match_the_column_mask(slope, a0, ssgn):
+# (slope, fstep, a0, ssgn): A and B at slopes 1 and 2, V, PA and PB
+@pytest.mark.parametrize("slope,a0,ssgn,fstep", [
+    (1, 0, -1, 1), (2, 0, -1, 1), (1, 17, 1, 1), (2, 34, 1, 1),
+    (0, 0, -1, 1), (1, 0, -1, 2), (1, 17, 1, 2)])
+def test_valid_rows_match_the_column_mask(slope, a0, ssgn, fstep):
     R, C = 18, 29
     rows = np.arange(R)
-    for t in range(C + slope * (R - 1)):
-        col = t - a0 + ssgn * slope * rows
-        want = np.flatnonzero((col >= 0) & (col < C))
-        r0, r1 = cuda_fused._valid_rows(t, a0, ssgn, slope, C, R)
-        np.testing.assert_array_equal(np.arange(r0, r1), want)
+    for t in range(fstep * (C - 1) + slope * (R - 1) + 1):
+        num = t - a0 + ssgn * slope * rows
+        want = np.flatnonzero((num >= 0) & (num % fstep == 0)
+                              & (num // fstep < C))
+        got = cuda_fused._valid_rows(t, a0, ssgn, slope, C, R, fstep)
+        np.testing.assert_array_equal(np.array(got, dtype=np.int64), want)
 
 
 def test_plain_runs_on_cpu_without_counting():
@@ -94,9 +107,10 @@ def test_wrappers_refuse_other_devices():
                        sides=((0, 0, 2), (0, 0, 2)))
     with pytest.raises(ValueError, match="device"):
         cuda_fused.fused_wavefront(
-            meta, meta, None, planes=((0, 0, 0, 2, 0, -1, False),),
+            meta, meta, torch.empty((1, 4, 5, 3), device="meta"),
+            accumulate=False, planes=((0, 0, 0, 2, 0, -1, False),),
             mspecs=((0, (0,), (True, False, False, False)),),
-            combos=((1, 0),), L=3, slope=1, mgm=1, mode="ad",
+            combos=((1, 0),), L=3, slope=1, fstep=1, mgm=1, mode="ad",
             tmax=float("inf"), p1=1.0, p2=2.0, kappa=0.0, reverse=False)
 
 
@@ -114,7 +128,7 @@ def test_library_is_keyed_by_the_sources():
     assert path.parent.parent == _build.BUILD_ROOT
     assert {s.name for s in _build._sources()} >= {
         "fused_wavefront.cu", "wta.cu", "wavefront.cu", "skew.cu",
-        "mgm_kernels.h"}
+        "cost.cu", "mgm_kernels.h"}
 
 
 @pytest.mark.cuda
@@ -138,6 +152,61 @@ def test_kernels_match_plain(cuda, ndir, mgm, L, lr, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ndir,mgm,group,L,lr", [
+    (8, 2, 1, 11, True),     # V
+    (8, 3, 1, 40, False),    # V, three coupled deps
+    (4, 4, 1, 11, True),     # PB
+    (8, 4, 1, 151, True),    # PA + PB, lags up to 3, rows of both signs
+    (16, 4, None, 11, True)])   # A/B + PA/PB into one volume
+def test_kernels_match_plain_in_every_space(cuda, ndir, mgm, group, L, lr):
+    rng = np.random.default_rng(2)
+    u, v = _pair(rng, 17, 29, 3)
+    L, sides = _sides(-L + 5, 4, lr)
+    kw = dict(ndir=ndir, mgm=mgm, sides=sides, L=L, device=cuda,
+              group=group)
+    got, ns = _solve_planes(cuda_fused.fused_wavefront, u, v, **kw)
+    want, _ = _solve_planes(cuda_fused.fused_wavefront_plain, u, v, **kw)
+    torch.cuda.synchronize()
+    assert_bitwise(got.cpu().numpy(), want.cpu().numpy())
+    d1, c1 = cuda_fused.wta(got, nspaces=ns, sides=sides)
+    d0, c0 = cuda_fused.wta_plain(got, nspaces=ns, sides=sides)
+    torch.cuda.synchronize()
+    assert_bitwise(d1.cpu().numpy(), d0.cpu().numpy())
+    assert_bitwise(c1.cpu().numpy(), c0.cpu().numpy())
+
+
+def _bt_blocks(rng, H, W, C):
+    """[I, Imin, Imax] channel blocks of a random image."""
+    i = rng.integers(0, 255, (H, W, C)).astype(np.float32)
+    lo = i - rng.integers(0, 20, (H, W, C)).astype(np.float32) * 0.5
+    hi = i + rng.integers(0, 20, (H, W, C)).astype(np.float32) * 0.5
+    return np.concatenate([i, lo, hi], -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", cuda_cost.MODES)
+@pytest.mark.parametrize("gmin,L", [(-7, 12), (-60, 151), (3, 5)])
+def test_cost_kernel_matches_plain(cuda, mode, gmin, L):
+    rng = np.random.default_rng(3)
+    H, W = 13, 37
+    if mode == "census":
+        u, v = (rng.integers(0, 2**32, (H, W, 2), dtype=np.uint64)
+                .astype(np.uint32).view(np.int32) for _ in range(2))
+    elif mode in ("btad", "btsd"):
+        u, v = _bt_blocks(rng, H, W, 3), _bt_blocks(rng, H, W, 3)
+    else:
+        u, v = _pair(rng, H, W, 3)
+    ut, vt = torch.from_numpy(u).to(cuda), torch.from_numpy(v).to(cuda)
+    n = cuda_cost.pointwise_volume.launches
+    got = cuda_cost.pointwise_volume(ut, vt, gmin=gmin, L=L, mode=mode)
+    assert cuda_cost.pointwise_volume.launches == n + 1
+    want = cuda_cost.pointwise_volume_plain(ut, vt, gmin=gmin, L=L,
+                                            mode=mode)
+    torch.cuda.synchronize()
+    assert_bitwise(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
 def test_cfg1_pipeline_cuda_equals_cpu(cuda):
     u, v, _ = synthetic_pair(24, 40, -8, 4, seed=3)
     cfg = MGMConfig(dmin=-120, dmax=30, ndir=4, mgm=2, distance="ad", p1=8,
@@ -147,6 +216,26 @@ def test_cfg1_pipeline_cuda_equals_cpu(cuda):
     # one forward and one backward launch; both sides are planes of each
     assert cuda_fused.fused_wavefront.launches == n1 + 2
     assert cuda_fused.wta.launches == n2 + 1
+    want = compute_disparity(u, v, cfg, device="cpu")
+    assert sorted(got) == sorted(want)
+    for k in got:
+        assert_bitwise(got[k], want[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndir,mgm,k1,k8", [
+    (16, 2, 4, 2),     # A/B + V groups, knight passes through K8
+    (4, 4, 4, 0),      # A + PB, K2
+    (8, 3, 4, 0)])     # A/B + V, K2
+def test_fused_schedules_cuda_equal_cpu(cuda, ndir, mgm, k1, k8):
+    u, v, _ = synthetic_pair(24, 40, -8, 4, seed=3)
+    cfg = MGMConfig(dmin=-8, dmax=4, ndir=ndir, mgm=mgm, distance="ad",
+                    p1=8, p2=32, test_lr=True)
+    n1 = cuda_fused.fused_wavefront.launches
+    n8 = cuda_cost.pointwise_volume.launches
+    got = compute_disparity(u, v, cfg, device=cuda)
+    assert cuda_fused.fused_wavefront.launches == n1 + k1
+    assert cuda_cost.pointwise_volume.launches == n8 + k8
     want = compute_disparity(u, v, cfg, device="cpu")
     assert sorted(got) == sorted(want)
     for k in got:
