@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time goes on one GPU: the port's five full-width runs.
+"""Where the time goes on one GPU: the port's seven full-width runs.
 
-    python3 chip_profile.py [--reps N] [--out DIR]
+    python3 chip_profile.py [--reps N] [--out DIR] [--rows NAME ...]
 
 Run from a checkout on a machine with one CUDA card (it builds the
 kernels like chip_smoke.py and imports no JAX).  The runs, on seeded
@@ -11,6 +11,11 @@ synthetic data at 700x500, L = 151:
   cfg1_tsgm4  the same at TSGM 4 (K1 in spaces A and PB, K2);
   full_16dir  the same at 16 directions, TSGM 2 (K1 in A/B and V, the
               knight passes through K8 and K6/K5/K7);
+  cfg2        the census_tl preset over -120..30 (census words, FH,
+              8 directions, TSGM 3: K1 in A/B and V, K2 with the
+              subpixel taps, vfit, median);
+  cfg4        the sobelx_tl preset (AD, FH, trunc_dist 63, vfit,
+              median);
   ncc         compute_disparity with the `ncc` preset, LR (dense
               K6/K5/K7);
   mgm_o       mrf_cli.main on a protocol file, NDIR 8, MGM 2, VTYPE 0.
@@ -22,7 +27,8 @@ For each run it prints
   - under torch.profiler over N runs: the device's busy share (the
     union of kernel and copy intervals over the host wall) and device
     time by kernel name.
-With --out DIR the full tables also go to DIR/profile.json.
+With --out DIR the full tables also go to DIR/profile.json; --rows
+names the runs to make (default: all).
 """
 from __future__ import annotations
 
@@ -117,6 +123,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", help="directory for profile.json")
+    ap.add_argument("--rows", nargs="+", help="run only these rows")
     args = ap.parse_args(argv)
 
     import torch
@@ -125,6 +132,7 @@ def main(argv=None) -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     from mgm_tpu_torch import MGMConfig, mrf, mrf_cli, solver, stereo
+    from mgm_tpu_torch.ops import post
     from mgm_tpu_torch.models import get_preset
     from mgm_tpu_torch.ops import _build, cuda_fused, fused
     from mgm_tpu_torch.ops import aggregate as agg
@@ -139,6 +147,8 @@ def main(argv=None) -> int:
     tsgm4 = cfg1.replace(mgm=4)
     full16 = cfg1.replace(ndir=16)
     ncc = get_preset("ncc", dmin=DMIN, dmax=DMAX)
+    cfg2, cfg4 = (get_preset(n, dmin=DMIN, dmax=DMAX, test_lr=True)
+                  for n in ("census_tl", "sobelx_tl"))
     tmp = tempfile.TemporaryDirectory()
     f_in = os.path.join(tmp.name, "input.bin")
     f_out = os.path.join(tmp.name, "labeling.bin")
@@ -154,9 +164,20 @@ def main(argv=None) -> int:
                  (stereo, "mgm_solve_fused", "fused solve"),
                  (cuda_fused, "fused_wavefront", "  K1 fused wavefront"),
                  (cuda_fused, "wta", "  K2 wta")]
+    refined = [(stereo, "_scrub", "upload + scrub"),
+               (stereo, "_preprocess", "census / prefilter"),
+               (stereo, "mgm_solve_fused", "fused solve"),
+               (cuda_fused, "fused_wavefront", "  K1 fused wavefront"),
+               (cuda_fused, "wta", "  K2 wta + taps"),
+               (stereo, "subpixel_refine_taps", "refine"),
+               (post, "median_filter", "median")]
     runs = [
         ("cfg1", lambda: stereo.compute_disparity(u, v, cfg1, device="cuda"),
          2 * H * W * L, fused_wta),
+        ("cfg2", lambda: stereo.compute_disparity(u, v, cfg2, device="cuda"),
+         2 * H * W * L, refined),
+        ("cfg4", lambda: stereo.compute_disparity(u, v, cfg4, device="cuda"),
+         2 * H * W * L, refined),
         ("cfg1_tsgm4", lambda: stereo.compute_disparity(u, v, tsgm4,
                                                         device="cuda"),
          2 * H * W * L, fused_wta),
@@ -189,6 +210,8 @@ def main(argv=None) -> int:
     ]
     report = {"card": card, "reps": args.reps, "runs": {}}
     for name, fn, work, wraps in runs:
+        if args.rows and name not in args.rows:
+            continue
         fn()   # warm: kernels loaded, allocator primed
         walls = _walls(fn, args.reps)
         med = statistics.median(walls)

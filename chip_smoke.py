@@ -12,8 +12,8 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     on the card, at cfg1 geometry on a 64-row strip (700 wide, L = 151,
     4 directions, TSGM 2, both LR sides, slope 1) and at slope 2 with
     front lag 3 (2 directions, TSGM 4): bitwise equal;
- 3. K2 (space sum + windowed WTA) against its plain version on the
-    same planes: bitwise equal;
+ 3. K2 (space sum + windowed WTA + the four subpixel taps) against its
+    plain version on the same planes: bitwise equal;
  4. cfg1 end to end: compute_disparity(device="cuda") on a 700x500x3
     synthetic pair with a known disparity field (-120..30), through both
     kernels (launch counters), with the recovery thresholds checked, the
@@ -21,7 +21,6 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     the median of REPS runs in MP*disp/s (2*H*W*L / s);
  5. K1 and K2 against their plain versions at cfg1's full shape (the
     synthetic pair, 700x500, L = 151, both LR sides): bitwise equal;
-    then each one's time beside its plain version's;
  6. the dense path's kernels K6 (skew), K5 (wavefront scan) and K7
     (unskew) against their plain versions on a 64-row strip, 700 wide,
     L = 151, both LR problems: SGM TSGM 2 at slope 1 and 2, weighted FH
@@ -57,7 +56,26 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
 14. K1 and K2 against their plain versions at the full shapes of
     full_16dir (A/B at slope 2 and V into one volume) and cfg1_tsgm4 (A
     at slope 2 and PB): bitwise equal; then K1's time per front of each
-    group at full width: A/B at slope 2, V, PB and PA + PB.
+    group at full width: A/B at slope 2, V, PB, PA + PB, and cfg2's A/B
+    and V groups (census, FH);
+15. K1 and K2 (+ taps) against their plain versions at cfg2's full
+    shape (census_tl over -120..30: 3x3 census words, FH, ndir 8,
+    TSGM 3, A/B at slope 2 and V, both LR sides): bitwise equal; then
+    each one's time beside its plain version's, K2's beside torch.min,
+    and their bounds: the kernels' record; then the same check at
+    cfg4's full shape (sobelx_tl: AD on 3 float channels truncated at
+    63*3, FH, ndir 8, TSGM 3);
+16. K1 and K2 against their plain versions on a 64-row strip, 700 wide,
+    L = 151: the `bt` preset (btad blocks, SGM, TSGM 2), cfg2 with
+    edge weights (aP2 0.5) and fast_ad at ndir 8 with edge weights
+    (SGM at TSGM 2, no update_cost2 halving): bitwise equal;
+17. cfg2 (census_tl) and cfg4 (sobelx_tl: AD, FH, trunc_dist 63, vfit)
+    end to end at 700x500x3, L = 151, as phase 4 with subpixel
+    disparities: >= 0.70 LR survivors, >= 0.95 of them within 0.5 px
+    (a surviving pixel's cost may be NaN only where the fit divides 0
+    by 0, at most 1 %);
+18. the `satellite`, `bt` and `full_16dir` presets on the crop: CUDA
+    equal to CPU for every output.
 
 With --data DIR holding fountain23-imL.png and fountain23-imR.png
 (default: the repository's data/), cfg1 also runs on that pair.  The
@@ -65,18 +83,20 @@ last three lines are the per-kernel JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}; a failure exits
 non-zero before them.  A kernel's `launches` counts its wrapper's
 calls on the main paths, each path's counts zeroed just before its run
-and read just after (`launches_by_path`): cfg1 (phase 4) and
-cfg1_tsgm4 (phase 13) for K1/K2, the two mgm_o runs and the NCC run
-(phases 7-8) for K5/K6/K7, full_16dir (phase 12) for K1, K5-K8;
-`launches` is their sum.  One K1 or K5 call launches one small kernel
-per wavefront.  `bound_ms` is the larger of the bytes the call must
-move over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
-H100 SXM's published peaks).
+and read just after (`launches_by_path`): cfg1 (phase 4), cfg1_tsgm4
+(phase 13), cfg2 and cfg4 (phase 17) for K1/K2, the two mgm_o runs and
+the NCC run (phases 7-8) for K5/K6/K7, full_16dir (phase 12) for K1,
+K5-K8; `launches` is their sum.  One K1 or K5 call launches one small
+kernel per wavefront.  K1's and K2's times and bounds are cfg2's
+(phase 15).  `bound_ms` is the larger of the bytes the call must move
+over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100
+SXM's published peaks).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -147,27 +167,75 @@ def _same_bits(name, got, want):
     return 0.0
 
 
-def _planes(fn, u, v, *, ndir, mgm, dmin, dmax, group=None):
-    """Every K1 launch of one fast_ad solve's fused groups (or of group
-    number `group` alone) through `fn` (K1 or its plain version) on
-    uint8 numpy images, with the solve's own overcount fold (none when
-    it has leftover passes); returns (volume, sides, nspaces)."""
-    import torch
+def _fast_ad(**kw):
+    """bench_matrix's fast_ad rows: the preset over DMIN..DMAX, LR."""
+    from mgm_tpu_torch.models import get_preset
+
+    return get_preset("fast_ad", dmin=DMIN, dmax=DMAX, test_lr=True, **kw)
+
+
+def _k1_inputs(cfg, u, v):
+    """What compute_disparity(u, v, cfg, device="cuda") hands K1, made
+    on the card from uint8 numpy images: each side's scrubbed and
+    prefiltered images as K1 takes them (census: int32 words; BT:
+    [I, Imin, Imax] blocks), the edge weights (None when all are 1)
+    and the solve's arguments, as fused_planes' keywords."""
+    from mgm_tpu_torch import stereo
     from mgm_tpu_torch.ops import fused
 
-    L = dmax - dmin + 1
-    sides = ((dmin, 0, L - 1), (-dmax, 0, L - 1))
     C = u.shape[-1]
-    lefts = torch.from_numpy(np.stack([u, v])).cuda().float()
-    rights = torch.from_numpy(np.stack([v, u])).cuda().float()
-    groups, leftover = fused.split_passes(ndir, mgm)
+    L_ = cfg.dmax - cfg.dmin + 1
+    u_t, v_t = (stereo._scrub(a, "cuda") for a in (u, v))
+    w8 = stereo._weights((u_t, v_t), cfg)
+    u_p, v_p = (stereo._preprocess(a, cfg) for a in (u_t, v_t))
+    lefts, rights = fused.side_images(u_p, v_p, N=2, mode=cfg.distance)
+    return dict(lefts=lefts, rights=rights, w8=w8, L=L_, mgm=cfg.mgm,
+                sides=((cfg.dmin, 0, L_ - 1), (-cfg.dmax, 0, L_ - 1)),
+                p1=cfg.p1 * C, p2=cfg.p2 * C, mode=cfg.distance,
+                tmax=cfg.trunc_dist * u_p.shape[-1],
+                use_fh=cfg.use_trunc_linear)
+
+
+def _planes(fn, cfg, inp, group=None):
+    """Every K1 launch of cfg's fused groups (or of group number `group`
+    alone) through `fn` (K1 or its plain version) on _k1_inputs'
+    `inp`, with the solve's own overcount fold (none when it has
+    leftover passes); returns (volume, nspaces)."""
+    from mgm_tpu_torch.ops import fused
+
+    groups, leftover = fused.split_passes(cfg.ndir, cfg.mgm)
     if group is not None:
         groups = groups[group:group + 1]
-    vol, nspaces = fused.fused_planes(
-        lefts, rights, sides=sides, L=L, groups=groups, mgm=mgm,
-        p1=8.0 * C, p2=32.0 * C, mode="ad", tmax=float("inf"),
-        kappa=0.0 if leftover else -float(ndir - 1), wavefront=fn)
-    return vol, sides, nspaces
+    kw = dict(inp)
+    return fused.fused_planes(kw.pop("lefts"), kw.pop("rights"),
+                              groups=groups, wavefront=fn,
+                              kappa=0.0 if leftover else -float(cfg.ndir - 1),
+                              **kw)
+
+
+def _k1_bound(cfg, inp, nspaces):
+    """(bound_ms, bound_by) of K1's launches of cfg at inp's shapes: the
+    volume written forward and read and written backward, the images
+    and weights read once; per cell of each fused pass the messages,
+    their sum and division and the cost's add, and per cell of each
+    plane the cost (3 operations a channel, truncation, window).  A
+    message takes 6 operations a label, SGM and FH alike: the FH
+    message is the L1 distance transform, a forward and a backward
+    sweep of an add and a minimum, then the cap and the difference
+    (K1's min-plus doubling does 2*ceil(log2 L) steps of 3 instead,
+    more work than the function needs)."""
+    from mgm_tpu_torch.ops import fused
+
+    N, R, C, nch = inp["lefts"].shape
+    L_, mgm = inp["L"], cfg.mgm
+    cells = N * R * C * L_
+    nbytes = 3 * nspaces * cells * 4 + 2 * inp["lefts"].numel() * 4
+    if inp["w8"] is not None:
+        nbytes += inp["w8"].numel() * 4
+    npass = cfg.ndir - len(fused.split_passes(cfg.ndir, mgm)[1])
+    ops = (npass * cells * (mgm * 6 + mgm + 1)
+           + nspaces * cells * (3 * nch + 2))
+    return _bound(nbytes, ops)
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -265,13 +333,29 @@ def _zero(names):
         _kernels()[n].launches = 0
 
 
-def _stereo_path(phase, tag, cfg, pair, names, card, reps):
+def _crop_check(phase, tag, cfg, u, v):
+    """compute_disparity on CROP: every output of the CUDA run bitwise
+    equal to the CPU run's (the plain versions of the kernels)."""
+    import torch
+    from mgm_tpu_torch import compute_disparity
+
+    small_gpu = compute_disparity(u[CROP], v[CROP], cfg, device="cuda")
+    small_cpu = compute_disparity(u[CROP], v[CROP], cfg, device="cpu")
+    for k in small_cpu:
+        _compare(f"{tag} crop {k}", torch.from_numpy(small_gpu[k]),
+                 torch.from_numpy(small_cpu[k]))
+    print(f"[{phase}] {tag} on a {small_cpu['disp'].shape} crop: CUDA == "
+          f"CPU plain for every output ({TOL})", flush=True)
+
+
+def _stereo_path(phase, tag, cfg, pair, names, card, reps, tol=0.0):
     """One stereo row end to end at full width: the kernels `names`
     counted over one compute_disparity(device="cuda") run (each must
     launch), shapes, finite costs, the recovery thresholds (>= 0.70 LR
-    survivors, >= 0.95 of them exact), peak device memory, a crop equal
-    to its CPU run, and the median wall of `reps` runs.  Returns the
-    launch counts."""
+    survivors, >= 0.95 of them within `tol` px of the truth: 0 for the
+    integer rows, 0.5 px for the refined ones), peak device memory, a
+    crop equal to its CPU run, and the median wall of `reps` runs.
+    Returns the launch counts."""
     import torch
     from mgm_tpu_torch import compute_disparity
 
@@ -289,23 +373,26 @@ def _stereo_path(phase, tag, cfg, pair, names, card, reps):
     if disp.shape != (H_, W_) or out["cost"].shape != (H_, W_):
         raise AssertionError(f"{tag} output shapes {disp.shape}")
     ok = np.isfinite(disp)
-    if not np.isfinite(out["cost"][ok]).all():
-        raise AssertionError(f"{tag}: a surviving pixel has no finite cost")
+    cost = out["cost"][ok]
+    # a refined cost is NaN where the fit divides 0 by 0 (flat taps,
+    # refine.h), and the median then fills that pixel's disparity
+    nan_cost = float(np.isnan(cost).mean())
+    if not (np.isfinite(cost) | np.isnan(cost)).all() or nan_cost > (
+            0.01 if cfg.refinement != "none" else 0.0):
+        raise AssertionError(f"{tag}: surviving pixels without a finite "
+                             f"cost ({nan_cost} NaN)")
     survive = float(ok.mean())
-    correct = float((disp[ok] == d_true[ok]).mean())
+    correct = float((np.abs(disp[ok] - d_true[ok]) <= tol).mean())
     print(f"[{phase}] {tag} {W_}x{H_}x3 L={L_} (ndir {cfg.ndir}, TSGM "
-          f"{cfg.mgm}): launches {got}, LR survivors {survive:.4f} "
-          f"(>= 0.70), correct among them {correct:.4f} (>= 0.95), peak "
-          f"device memory {peak:.3f} GiB", flush=True)
+          f"{cfg.mgm}, {cfg.distance}, {'FH' if cfg.use_trunc_linear else 'SGM'}"
+          f", refinement {cfg.refinement}): launches {got}, LR survivors "
+          f"{survive:.4f} (>= 0.70), within {tol} px among them "
+          f"{correct:.4f} (>= 0.95), NaN costs among them {nan_cost:.5f} "
+          f"(degenerate fits, <= 0.01), peak device memory {peak:.3f} GiB",
+          flush=True)
     if survive < 0.70 or correct < 0.95:
         raise AssertionError(f"{tag} recovery below threshold")
-    small_gpu = compute_disparity(u[CROP], v[CROP], cfg, device="cuda")
-    small_cpu = compute_disparity(u[CROP], v[CROP], cfg, device="cpu")
-    for k in small_cpu:
-        _compare(f"{tag} crop {k}", torch.from_numpy(small_gpu[k]),
-                 torch.from_numpy(small_cpu[k]))
-    print(f"[{phase}] {tag} on a {small_cpu['disp'].shape} crop: CUDA == "
-          f"CPU plain for every output ({TOL})", flush=True)
+    _crop_check(phase, tag, cfg, u, v)
     walls = _walls(lambda: compute_disparity(u, v, cfg, device="cuda",
                                              outputs=("disp", "cost")), reps)
     med = statistics.median(walls)
@@ -361,38 +448,90 @@ def _dense_strip(case, rng, dev):
 
 
 def _fused_check(phase, cases, errs, u, v):
-    """K1 and K2 against their plain versions on the uint8 pair (u, v),
-    L = 151, both LR sides, for each (ndir, mgm, group) case (group
-    None: every fused group of the solve); folds the max abs errors
-    into `errs` and returns each case's plain K1 time (ms, one run)."""
+    """K1 and K2 (with the subpixel taps) against their plain versions
+    on the uint8 pair (u, v), both LR sides, for each (label, cfg,
+    group) case (group None: every fused group of the solve); folds the
+    max abs errors into `errs` and returns each case's plain K1 time
+    (ms, one run)."""
     import torch
     from mgm_tpu_torch.ops import cuda_fused, fused
 
     plain_ms = []
-    for ndir, mgm, group in cases:
-        kw = dict(ndir=ndir, mgm=mgm, dmin=DMIN, dmax=DMAX, group=group)
-        got, sides, ns = _planes(cuda_fused.fused_wavefront, u, v, **kw)
-        t, (want, _, _) = _event_once(lambda: _planes(
-            cuda_fused.fused_wavefront_plain, u, v, **kw))
+    for label, cfg, group in cases:
+        inp = _k1_inputs(cfg, u, v)
+        if cfg.a_p2 != 1.0 and inp["w8"] is None:
+            raise AssertionError(f"{label}: every edge weight is 1")
+        got, ns = _planes(cuda_fused.fused_wavefront, cfg, inp, group)
+        t, (want, _) = _event_once(lambda: _planes(
+            cuda_fused.fused_wavefront_plain, cfg, inp, group))
         plain_ms.append(t)
-        e1 = _compare(f"K1 ndir={ndir} mgm={mgm} group={group}", got, want)
+        e1 = _compare(f"K1 {label} group={group}", got, want)
         del want
-        d1, c1 = cuda_fused.wta(got, nspaces=ns, sides=sides)
-        d0, c0 = cuda_fused.wta_plain(got, nspaces=ns, sides=sides)
+        sides = inp["sides"]
+        k2 = cuda_fused.wta(got, nspaces=ns, sides=sides, want_taps=True)
+        ref = cuda_fused.wta_plain(got, nspaces=ns, sides=sides,
+                                   want_taps=True)
         torch.cuda.synchronize()
-        e2 = max(_compare("K2 disp", d1, d0), _compare("K2 cost", c1, c0))
+        e2 = max(_compare(f"K2 {what} {label}", a, b)
+                 for what, a, b in zip(("disp", "cost", "taps"), k2, ref))
         errs["fused_wavefront"] = max(errs["fused_wavefront"], e1)
         errs["wta"] = max(errs["wta"], e2)
-        groups = fused.split_passes(ndir, mgm)[0]
+        groups = fused.split_passes(cfg.ndir, cfg.mgm)[0]
         if group is not None:
             groups = groups[group:group + 1]
         what = ", ".join(f"slope {g[0]} {'+'.join(g[1])}" for g in groups)
         print(f"[{phase}] K1 == plain at {u.shape[0]}x{u.shape[1]}x3, "
-              f"L={L}, ndir={ndir} TSGM={mgm} ({what}): {TOL}, max abs err "
-              f"{e1}; K2 == plain on those planes ({ns} spaces): max abs "
-              f"err {e2}", flush=True)
-        del got
+              f"L={inp['L']}, {label}: ndir {cfg.ndir} TSGM {cfg.mgm}, "
+              f"{cfg.distance} ({inp['lefts'].shape[-1]} channels a pixel), "
+              f"{'FH' if cfg.use_trunc_linear else 'SGM'}, weights "
+              f"{'on' if inp['w8'] is not None else 'off'} ({what}): {TOL}, "
+              f"max abs err {e1}, plain {t:.1f} ms; K2 + taps == plain on "
+              f"those planes ({ns} spaces): max abs err {e2}", flush=True)
+        del got, k2, ref
     return plain_ms
+
+
+def _fused_timing(phase, tag, cfg, u, v, errs, card):
+    """K1 and K2 (+ taps) of cfg at the full shape of (u, v): checked
+    against their plain versions (_fused_check), then each one's time
+    beside its plain version's, K2's beside torch.min over the summed
+    volume, and their bounds.  Returns (ms, plain_ms, library_ms,
+    bounds), each {kernel name: value}."""
+    import torch
+    from mgm_tpu_torch.ops import cuda_fused
+
+    plain_ms = {"fused_wavefront": _fused_check(phase, ((tag, cfg, None),),
+                                                errs, u, v)[0]}
+    inp = _k1_inputs(cfg, u, v)
+    ms = {"fused_wavefront": _event_ms(lambda: _planes(
+        cuda_fused.fused_wavefront, cfg, inp), 3)}
+    vol, ns = _planes(cuda_fused.fused_wavefront, cfg, inp)
+    sides = inp["sides"]
+    n_sides = len(sides)
+    ms["wta"] = _event_ms(lambda: cuda_fused.wta(
+        vol, nspaces=ns, sides=sides, want_taps=True), 10)
+    plain_ms["wta"] = _event_ms(lambda: cuda_fused.wta_plain(
+        vol, nspaces=ns, sides=sides, want_taps=True), 3)
+    # K2's library yardstick: torch.min over the summed volume
+    ssum = vol[:n_sides]
+    for si in range(1, ns):
+        ssum = ssum + vol[si * n_sides:(si + 1) * n_sides]
+    library_ms = {"fused_wavefront": None,
+                  "wta": _event_ms(lambda: torch.min(ssum, dim=-1), 10)}
+    del ssum
+    # K2 reads the volume once and writes disp, cost and the 4 taps
+    bounds = {"fused_wavefront": _k1_bound(cfg, inp, ns),
+              "wta": _bound(vol.numel() * 4 + 6 * n_sides * H * W * 4,
+                            2 * vol.numel())}
+    del vol
+    for name in ms:
+        print(f"[{phase}] {name}: {ms[name]:.3f} ms, plain "
+              f"{plain_ms[name]:.3f} ms, library {library_ms[name]} ms, "
+              f"bound {bounds[name][0]:.3f} ms ({bounds[name][1]}) at {tag}'s "
+              f"shapes ({ns * n_sides} planes {H}x{W}, L={inp['L']}; K1 = "
+              f"every fused group, forward + backward launch) on {card}",
+              flush=True)
+    return ms, plain_ms, library_ms, bounds
 
 
 def main(argv=None) -> int:
@@ -407,7 +546,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from mgm_tpu_torch import MGMConfig, compute_disparity, mrf_cli
+    from mgm_tpu_torch import compute_disparity, mrf_cli
     from mgm_tpu_torch.models import get_preset
     from mgm_tpu_torch.mrf import solve_mrf
     from mgm_tpu_torch.ops import _build, cuda_cost, cuda_fused, fused
@@ -431,11 +570,12 @@ def main(argv=None) -> int:
     # ---- 2./3. K1 and K2 against their plain versions ----------------
     errs = {n: 0.0 for n in _kernels()}
     strip = synthetic_pair(STRIP, W, DMIN, DMAX, seed=1)[:2]
-    _fused_check("2-3", ((4, 2, None), (2, 4, None)), errs, *strip)
+    _fused_check("2-3", (("cfg1", _fast_ad(), None),
+                         ("fast_ad", _fast_ad(ndir=2, mgm=4), None)),
+                 errs, *strip)
 
     # ---- 4. cfg1 end to end -------------------------------------------
-    cfg = MGMConfig(dmin=DMIN, dmax=DMAX, ndir=4, mgm=2, distance="ad",
-                    p1=8, p2=32, test_lr=True)
+    cfg = _fast_ad()
     pair = synthetic_pair(H, W, DMIN, DMAX, seed=0)
     u, v, d_true = pair
     # per kernel: {main path: launches in that path's run}
@@ -444,37 +584,10 @@ def main(argv=None) -> int:
     for n in got:
         by_path[n]["cfg1"] = got[n]
 
-    # ---- 5. K1 and K2 at cfg1's full shape: check and timing ---------
-    plain_ms = {"fused_wavefront": _fused_check("5", ((4, 2, None),), errs,
-                                                u, v)[0]}
-    ms = {"fused_wavefront": _event_ms(lambda: _planes(
-        cuda_fused.fused_wavefront, u, v, ndir=4, mgm=2, dmin=DMIN,
-        dmax=DMAX), 3)}
-    vol, sides, ns = _planes(cuda_fused.fused_wavefront, u, v, ndir=4,
-                             mgm=2, dmin=DMIN, dmax=DMAX)
-    ms["wta"] = _event_ms(lambda: cuda_fused.wta(vol, nspaces=ns,
-                                                 sides=sides), 10)
-    plain_ms["wta"] = _event_ms(lambda: cuda_fused.wta_plain(
-        vol, nspaces=ns, sides=sides), 3)
-    # K2's library yardstick: torch.min over the summed volume
-    n_sides = len(sides)
-    ssum = vol[:n_sides] + vol[n_sides:]
-    library_ms = {"fused_wavefront": None,
-                  "wta": _event_ms(lambda: torch.min(ssum, dim=-1), 10)}
-    del ssum
-    # K1 writes the volume forward and reads + writes it backward; K2
-    # reads it once and writes disp and cost
-    vbytes = vol.numel() * 4
-    img_bytes = 2 * 2 * H * W * 3 * 4
-    bounds = {"fused_wavefront": _bound(3 * vbytes + 2 * img_bytes,
-                                        2 * vol.numel() * 30),
-              "wta": _bound(vbytes + 2 * n_sides * H * W * 4,
-                            2 * vol.numel())}
-    del vol
-    for name in ms:
-        print(f"[5] {name}: {ms[name]:.3f} ms, plain {plain_ms[name]:.3f} ms "
-              f"(cfg1 shapes: 4 planes {H}x{W}, L={L}; K1 = forward + "
-              f"backward launch) on {card}", flush=True)
+    # ---- 5. K1 and K2 at cfg1's full shape ---------------------------
+    # (phase 15 times them at cfg2, the numbers of the kernels' record)
+    _fused_check("5", (("cfg1", cfg, None),), errs, u, v)
+    ms, plain_ms, library_ms, bounds = {}, {}, {}, {}
 
     fl, fr = (os.path.join(args.data, f"fountain23-im{s}.png")
               for s in "LR")
@@ -666,8 +779,9 @@ def main(argv=None) -> int:
     del x
 
     # ---- 10. K1 and K2 in the V and packed-parity spaces -------------
-    _fused_check("10", ((8, 2, 1), (8, 4, 1)), errs,
-                 *synthetic_pair(STRIP, W, DMIN, DMAX, seed=2)[:2])
+    _fused_check("10", (("fast_ad V group", _fast_ad(ndir=8), 1),
+                        ("fast_ad parity group", _fast_ad(ndir=8, mgm=4), 1)),
+                 errs, *synthetic_pair(STRIP, W, DMIN, DMAX, seed=2)[:2])
 
     # ---- 11. K8 against its plain version at full width -------------
     ut, vt = (torch.from_numpy(a).to(dev).float() for a in (u, v))
@@ -715,13 +829,10 @@ def main(argv=None) -> int:
     del ut, vt
 
     # ---- 12./13. full_16dir and cfg1_tsgm4 end to end ----------------
-    rows = {"full_16dir": ("12", get_preset("fast_ad", dmin=DMIN, dmax=DMAX,
-                                            test_lr=True, ndir=16),
+    rows = {"full_16dir": ("12", _fast_ad(ndir=16),
                            ("fused_wavefront",) + DENSE_KERNELS
                            + ("pointwise_volume",)),
-            "cfg1_tsgm4": ("13", get_preset("fast_ad", dmin=DMIN, dmax=DMAX,
-                                            test_lr=True, mgm=4),
-                           FUSED_KERNELS)}
+            "cfg1_tsgm4": ("13", _fast_ad(mgm=4), FUSED_KERNELS)}
     for tag, (phase, rcfg, names) in rows.items():
         got = _stereo_path(phase, tag, rcfg, pair, names, card, REPS)
         for n in got:
@@ -729,23 +840,66 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     # ---- 14. K1 and K2 at the new rows' full shapes; K1 per front ---
-    _fused_check("14", ((16, 2, None), (4, 4, None)), errs, u, v)
+    _fused_check("14", (("full_16dir", _fast_ad(ndir=16), None),
+                        ("cfg1_tsgm4", _fast_ad(mgm=4), None)), errs, u, v)
     torch.cuda.empty_cache()
-    for tag, ndir, mgm, group in (("A/B slope 2", 16, 2, 0), ("V", 16, 2, 1),
-                                  ("PB", 4, 4, 1), ("PA+PB", 8, 4, 1)):
-        g = fused.split_passes(ndir, mgm)[0][group]
+    cfg2 = get_preset("census_tl", dmin=DMIN, dmax=DMAX, test_lr=True)
+    for tag, kcfg, group in (("A/B slope 2", _fast_ad(ndir=16), 0),
+                             ("V", _fast_ad(ndir=16), 1),
+                             ("PB", _fast_ad(mgm=4), 1),
+                             ("PA+PB", _fast_ad(ndir=8, mgm=4), 1),
+                             ("cfg2 A/B slope 2, census + FH", cfg2, 0),
+                             ("cfg2 V, census + FH", cfg2, 1)):
+        g = fused.split_passes(kcfg.ndir, kcfg.mgm)[0][group]
         slope, fstep = (1, 2) if g[0] == fused.P_SLOPE else (g[0], 1)
         fronts = len(g[2]) * (fstep * (W - 1) + slope * (H - 1) + 1)
-        gms = _event_ms(lambda: _planes(
-            cuda_fused.fused_wavefront, u, v, ndir=ndir, mgm=mgm, dmin=DMIN,
-            dmax=DMAX, group=group), 3)
-        print(f"[14] K1 {tag} group of ndir {ndir} TSGM {mgm} at {H}x{W}, "
-              f"L={L}, {2 * len(g[1])} planes: {gms:.3f} ms for {fronts} "
-              f"front kernels = {gms / fronts * 1e3:.3f} us a front on "
-              f"{card}", flush=True)
+        inp = _k1_inputs(kcfg, u, v)
+        gms = _event_ms(lambda: _planes(cuda_fused.fused_wavefront, kcfg,
+                                        inp, group), 3)
+        print(f"[14] K1 {tag} group of ndir {kcfg.ndir} TSGM {kcfg.mgm} at "
+              f"{H}x{W}, L={L}, {2 * len(g[1])} planes: {gms:.3f} ms for "
+              f"{fronts} front kernels = {gms / fronts * 1e3:.3f} us a front "
+              f"on {card}", flush=True)
+        del inp
+
+    # ---- 15. K1 and K2 (+ taps) at cfg2's and cfg4's full shapes ------
+    # cfg2: census 3x3 (one word a pixel), FH, ndir 8, TSGM 3: A/B at
+    # slope 2 and V; these are the kernels' record's times and bounds.
+    # cfg4: AD on 3 sobel-x channels truncated at 63*3, FH.
+    k1k2 = _fused_timing("15", "cfg2", cfg2, u, v, errs, card)
+    for d, part in zip((ms, plain_ms, library_ms, bounds), k1k2):
+        d.update(part)
+    torch.cuda.empty_cache()
+    cfg4 = get_preset("sobelx_tl", dmin=DMIN, dmax=DMAX, test_lr=True)
+    _fused_check("15", (("cfg4", cfg4, None),), errs, u, v)
+    torch.cuda.empty_cache()
+
+    # ---- 16. K1 and K2 with BT costs and with edge weights -----------
+    _fused_check("16", (
+        ("bt", get_preset("bt", dmin=DMIN, dmax=DMAX, test_lr=True), None),
+        ("cfg2 with weights (aP2 0.5)", cfg2.replace(a_p2=0.5), None),
+        ("fast_ad ndir 8 with weights (aP2 0.5)",
+         _fast_ad(ndir=8, a_p2=0.5), None)), errs, *strip)
+
+    # ---- 17. cfg2 and cfg4 end to end ---------------------------------
+    rows = {"cfg2": ("17", cfg2),
+            "cfg4": ("17", cfg4)}
+    for tag, (phase, rcfg) in rows.items():
+        got = _stereo_path(phase, tag, rcfg, pair, FUSED_KERNELS, card, REPS,
+                           tol=0.5)
+        for n in got:
+            by_path[n][tag] = got[n]
+        torch.cuda.empty_cache()
+
+    # ---- 18. the other presets: CUDA == CPU on the crop ---------------
+    _crop_check("18", "satellite", get_preset("satellite", test_lr=True),
+                u, v)
+    for name in ("bt", "full_16dir"):
+        _crop_check("18", f"{name} preset", get_preset(
+            name, dmin=DMIN, dmax=DMAX, test_lr=True), u, v)
 
     launches = {n: sum(c.values()) for n, c in by_path.items()}
-    print(f"[14] smoke run took {time.perf_counter() - t_start:.1f} s",
+    print(f"[18] smoke run took {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     src = {"fused_wavefront": ("mgm_tpu_torch/csrc/fused_wavefront.cu",

@@ -20,18 +20,11 @@
 // consecutive labels of a pixel, so the stores coalesce and the right
 // image's reads walk consecutive columns.
 //
-// Numerics follow the plain PyTorch version in cuda_cost.py: channels
-// summed left to right, built with --fmad=false (no d*d + acc
-// contraction), and a NaN-keeping minimum for BT (torch.minimum's
-// semantics; the zero signs it may differ in vanish in the abs).
-#include <cuda_runtime.h>
-#include <math.h>
-
-#include "mgm_kernels.h"
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);
-}
+// Numerics follow the plain PyTorch version in cuda_cost.py: the cost
+// of a (pixel, label) pair is mgm_device.cuh's pointwise_cost, which K1
+// also computes in flight (channels summed left to right, no d*d + acc
+// contraction under --fmad=false, a NaN-keeping minimum for BT).
+#include "mgm_device.cuh"
 
 __global__ void cost_kernel(const CostParams p) {
   const int y = blockIdx.y;
@@ -41,38 +34,9 @@ __global__ void cost_kernel(const CostParams p) {
   const int l = e - x * p.L;
   int q = x + p.gmin + l;
   q = q < 0 ? 0 : (q >= p.W ? p.W - 1 : q);
-  const size_t up = ((size_t)y * p.W + x) * p.nch;
-  const size_t vp = ((size_t)y * p.W + q) * p.nch;
-  float acc = 0.f;
-  if (p.mode == MGM_COST_CENSUS) {
-    const unsigned* u = (const unsigned*)p.left + up;
-    const unsigned* v = (const unsigned*)p.right + vp;
-    int bits = 0;
-    for (int c = 0; c < p.nch; ++c) bits += __popc(u[c] ^ v[c]);
-    acc = (float)bits * p.inv_nw;
-  } else if (p.mode == MGM_COST_AD || p.mode == MGM_COST_SD) {
-    const float* u = (const float*)p.left + up;
-    const float* v = (const float*)p.right + vp;
-    for (int c = 0; c < p.nch; ++c) {
-      float d = fabsf(u[c] - v[c]);
-      if (p.mode == MGM_COST_SD) d = d * d;
-      acc = c ? acc + d : d;
-    }
-  } else {  // BT: channel blocks [I, Imin, Imax] on both sides
-    const float* u = (const float*)p.left + up;
-    const float* v = (const float*)p.right + vp;
-    const int C = p.nch / 3;
-    for (int c = 0; c < C; ++c) {
-      const float il = u[c], umin = u[C + c], umax = u[2 * C + c];
-      const float ir = v[c], vmin = v[C + c], vmax = v[2 * C + c];
-      const float dlr = -nan_min(nan_min(0.f, -(il - vmax)), -(vmin - il));
-      const float drl = -nan_min(nan_min(0.f, -(ir - umax)), -(umin - ir));
-      float bt = fabsf(nan_min(dlr, drl));
-      if (p.mode == MGM_COST_BTSD) bt = bt * bt;
-      acc = c ? acc + bt : bt;
-    }
-  }
-  p.out[(size_t)y * p.W * p.L + e] = acc;
+  p.out[(size_t)y * p.W * p.L + e] = pointwise_cost(
+      p.mode, p.left, p.right, ((size_t)y * p.W + x) * p.nch,
+      ((size_t)y * p.W + q) * p.nch, p.nch, p.inv_nw);
 }
 
 extern "C" int mgm_cost_params_size(void) { return (int)sizeof(CostParams); }

@@ -3,11 +3,14 @@
 // Replaces the TPU kernel mgm_tpu/ops/pallas_fused.py:_kernel (launched
 // by fused_wavefront, pallas_fused.py:1057).  It computes the same
 // thing: for every front t of a skewed schedule (pixel (r, col) of a
-// plane lies on front t = fstep*col + a0 - ssgn*slope*r), the AD/SD cost of
-// each label in flight from the two images, the 1-4 coupled SGM messages
-// from the fronts t -+ lag, the update_cost2 quirk, the 1-pixel border
-// rule, the optional kappa*CC overcount fold and the backward launch's
-// accumulation onto the forward launch's output.
+// plane lies on front t = fstep*col + a0 - ssgn*slope*r), the cost of
+// each label in flight from the two images (ad, sd, census on int32
+// words, btad/btsd on [I, Imin, Imax] blocks: mgm_device.cuh's
+// pointwise_cost, which K8 shares), the 1-4 coupled SGM or FH messages
+// from the fronts t -+ lag, optionally with per-pixel edge weights, the
+// update_cost2 quirk, the 1-pixel border rule, the optional kappa*CC
+// overcount fold and the backward launch's accumulation onto the
+// forward launch's output.
 //
 // One map serves the five spaces: A/B (fstep 1, slope 1 or 2), V
 // (slope 0: front t is column t, every row live) and the parity spaces
@@ -17,36 +20,47 @@
 // block whose row sits out a front leaves at once.
 //
 // What is not carried over is the TPU's blocking: the VMEM ring buffer,
-// the DMA semaphores and the skewed image copies.  The kernel indexes
-// the unskewed images directly and writes the image-layout volume
-// (Mp, R, C, L).  The recursion state of one front (Ml x R x L floats,
-// 1.2 MB at the 700x500, L=151 main path) does not fit one SM's shared
-// memory, so the last D fronts live in a global ring (hist/mins) that
-// the 50 MB L2 holds.  Fronts synchronise by kernel boundaries: the C
-// entry point launches one small kernel per front on the caller's
-// stream (T = fstep*(C-1) + slope*(R-1) + 1 launches per direction).
+// the DMA semaphores and the skewed image and weight copies.  The
+// kernel indexes the unskewed images and the (N, R, C, 8) weights
+// directly and writes the image-layout volume (Mp, R, C, L).  The
+// recursion state of one front (Ml x R x L floats, 1.2 MB at the
+// 700x500, L=151 main path) does not fit one SM's shared memory, so the
+// last D fronts live in a global ring (hist/mins) that the 50 MB L2
+// holds.  Fronts synchronise by kernel boundaries: the C entry point
+// launches one small kernel per front on the caller's stream
+// (T = fstep*(C-1) + slope*(R-1) + 1 launches per direction).
 //
 // Bound: the chain of T dependent launches (launch latency and the
-// short per-front work), plus one write (forward) or read-modify-write
-// (backward) of the (Mp, R, C, L) float volume.  One block per
-// (row, plane) with one thread per label keeps every label reduction
-// (the all-invalid test, the per-pixel minimum) inside a block.
+// short per-front work; with FH, 4*ceil(log2 L) block barriers per
+// message), plus one write (forward) or read-modify-write (backward)
+// of the (Mp, R, C, L) float volume.  One block per (row, plane) with
+// one thread per label keeps every label reduction (the all-invalid
+// test, the per-pixel minimum, the FH doubling through shared memory)
+// inside a block.  Every condition that guards a barrier (the row's
+// front, the border rule, the recursion count) is the same for the
+// whole block; the label padding (l >= L) is masked through values.
 //
 // Numerics follow the plain PyTorch version in cuda_fused.py operation
 // for operation: build with --fmad=false and without fast math, so
-// o + kappa*cc is not contracted and inf/NaN behave as IEEE says.
-#include <cuda_runtime.h>
-#include <math.h>
-
-#include "mgm_kernels.h"
+// o + kappa*cc is not contracted and inf/NaN behave as IEEE says;
+// minima keep NaN as torch.minimum does.
+#include "mgm_device.cuh"
 
 __device__ __forceinline__ float warp_min(float v) {
   for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = nmin(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
-__global__ void front_kernel(const WaveParams p, int t, int slot_t) {
+// One front of one launch.  The cost family (MODE), the potential (FH)
+// and whether edge weights come (W) are template parameters, so each
+// preset's instance carries no branch it does not take (fast_ad's is
+// the AD, SGM, unweighted code alone) and the SGM ones have no barrier
+// inside their message loop.
+template <int MODE, bool FH, bool W>
+__device__ __forceinline__ void front(const WaveParams& p, int t,
+                                      int slot_t) {
+  __shared__ float buf[FH ? MGM_MAX_LABELS : 1];
   __shared__ float red[32];
   const int r = blockIdx.x;
   const int i = blockIdx.y;
@@ -58,25 +72,24 @@ __global__ void front_kernel(const WaveParams p, int t, int slot_t) {
   if (col >= p.C) return;
   const bool act = l < p.L;
   const int n = p.plane_side[i];
+  const size_t pix = ((size_t)n * p.R + r) * p.C + col;
 
   // ---- raw cost of this label, then truncation (pallas_fused.py:857)
   float e = p.tmax;
   const int q = col + p.plane_gmin[i] + l;  // right-image column
   if (act && q >= 0 && q < p.C) {
-    const float* u = p.left + (((size_t)n * p.R + r) * p.C + col) * p.nch;
-    const float* v = p.right + (((size_t)n * p.R + r) * p.C + q) * p.nch;
-    float raw = 0.f;
-    for (int ch = 0; ch < p.nch; ++ch) {
-      float d = fabsf(u[ch] - v[ch]);
-      if (p.sd) d = d * d;
-      raw = ch ? raw + d : d;
-    }
+    const float raw = pointwise_cost(
+        MODE, p.left, p.right, pix * p.nch,
+        (((size_t)n * p.R + r) * p.C + q) * p.nch, p.nch, p.inv_nw);
     e = raw > p.tmax ? p.tmax : raw;  // min that keeps a NaN, like jnp
   }
   const bool in_win = act && l >= p.plane_lo[i] && l <= p.plane_hi[i];
   // all-invalid window -> 0 (mgm_costvolume.h:410-421)
   if (!__syncthreads_or(in_win && e < INFINITY)) e = 0.f;
   const float cc = in_win ? e : INFINITY;
+  // update_cost2 halves each term (mgm_core.cc:83-84), only for the
+  // unweighted SGM potential (pallas_fused.py:911)
+  const bool halve = p.mgm == 2 && !FH && !W;
 
   const int nrec = p.plane_nrec[i];
   float sum = 0.f;
@@ -90,10 +103,15 @@ __global__ void front_kernel(const WaveParams p, int t, int slot_t) {
     float nv = cc;
     // interior pixels read only neighbours inside the image, which
     // earlier fronts wrote; the others keep their cost (the select of
-    // pallas_fused.py:932, never a multiply by a mask)
-    if (interior && act) {
+    // pallas_fused.py:932, never a multiply by a mask).  `interior` is
+    // the block's, so the FH barriers are reached by every thread.
+    if (interior) {
       float msum = 0.f, first = 0.f;
-      for (int j = 0; j < p.mgm; ++j) {
+      // unrolled, so the deps' loads issue together (as a plain loop,
+      // cfg1_tsgm4's fronts took 6 % longer on the H100)
+#pragma unroll
+      for (int j = 0; j < MGM_MAX_RANKS; ++j) {
+        if (j >= p.mgm) break;
         const int ci = p.rec_ranks[m][j];
         const int lag = p.combo_lag[ci];
         const int tt = p.reverse ? t + lag : t - lag;
@@ -102,17 +120,29 @@ __global__ void front_kernel(const WaveParams p, int t, int slot_t) {
         const size_t row = ((size_t)slot * p.Ml + m) * p.R + rr;
         const float* h = p.hist + row * p.L;
         const float mk = p.mins[row];
-        const float lk = h[l];
-        const float lm = l > 0 ? h[l - 1] : INFINITY;
-        const float lp = l < p.L - 1 ? h[l + 1] : INFINITY;
-        // min(Lk, min(Lk[l-1], Lk[l+1]) + P1, mk + P2) - mk
-        const float msg = fminf(fminf(lk, fminf(lm, lp) + p.p1),
-                                mk + p.p2) - mk;
-        if (j == 0) first = msg;
-        else if (j == 1 && p.mgm == 2) msum = first * 0.5f + msg * 0.5f;
-        if (p.mgm != 2) msum = j ? msum + msg : msg;
+        float p1w = p.p1, p2w = p.p2;
+        if constexpr (W) {  // this dep's weight at the pixel updated
+          const float d = p.w8[pix * 8 + p.rec_wch[m][j]];
+          p1w = d * p.p1;
+          p2w = d * p.p2;
+        }
+        float msg;
+        if constexpr (FH) {
+          msg = fh_msg(buf, act ? h[l] : INFINITY, p.L, mk, p1w, p2w);
+        } else {
+          const float lk = act ? h[l] : INFINITY;
+          const float lm = act && l > 0 ? h[l - 1] : INFINITY;
+          const float lp = act && l < p.L - 1 ? h[l + 1] : INFINITY;
+          msg = sgm_msg(lk, lm, lp, mk, p1w, p2w);
+        }
+        if (halve) {
+          if (j == 0) first = msg;
+          else msum = first * 0.5f + msg * 0.5f;
+        } else {
+          msum = j ? msum + msg : msg;
+        }
       }
-      if (p.mgm > 2) msum = msum / (float)p.mgm;
+      if (p.mgm > 1 && !halve) msum = msum / (float)p.mgm;
       nv = cc + msum;
     }
     const size_t hrow = ((size_t)slot_t * p.Ml + m) * p.R + r;
@@ -122,7 +152,7 @@ __global__ void front_kernel(const WaveParams p, int t, int slot_t) {
     if ((l & 31) == 0) red[l >> 5] = mv;
     __syncthreads();
     if (l == 0) {
-      for (int w = 1; w < (int)(blockDim.x >> 5); ++w) mv = fminf(mv, red[w]);
+      for (int w = 1; w < (int)(blockDim.x >> 5); ++w) mv = nmin(mv, red[w]);
       p.mins[hrow] = mv;
     }
     __syncthreads();
@@ -135,7 +165,47 @@ __global__ void front_kernel(const WaveParams p, int t, int slot_t) {
   *dst = p.accumulate ? *dst + o : o;
 }
 
+// The FH instances keep to 40 registers, so 10 blocks of 160 threads
+// fit an SM (8 at 48; __maxnreg__ needs nvcc 12.4 or later).  The SGM
+// ones are left to the compiler: capped at 40 they spill.
+template <int MODE, bool W>
+__global__ void __maxnreg__(40) fh_front_kernel(const WaveParams p, int t,
+                                                int slot_t) {
+  front<MODE, true, W>(p, t, slot_t);
+}
+
+template <int MODE, bool W>
+__global__ void sgm_front_kernel(const WaveParams p, int t, int slot_t) {
+  front<MODE, false, W>(p, t, slot_t);
+}
+
 extern "C" int mgm_wave_params_size(void) { return (int)sizeof(WaveParams); }
+
+template <int MODE, bool FH, bool W>
+static int run_fronts(const WaveParams& p, cudaStream_t s) {
+  const int T = p.fstep * (p.C - 1) + p.slope * (p.R - 1) + 1;
+  const dim3 grid(p.R, p.Mp);
+  const int threads = (p.L + 31) / 32 * 32;
+  for (int k = 0; k < T; ++k) {
+    const int t = p.reverse ? T - 1 - k : k;
+    if constexpr (FH)
+      fh_front_kernel<MODE, W><<<grid, threads, 0, s>>>(p, t, t % (p.D + 1));
+    else
+      sgm_front_kernel<MODE, W><<<grid, threads, 0, s>>>(p, t, t % (p.D + 1));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+typedef int (*RunFronts)(const WaveParams&, cudaStream_t);
+
+template <int MODE>
+static RunFronts pick(bool fh, bool w) {
+  if (fh)
+    return w ? run_fronts<MODE, true, true> : run_fronts<MODE, true, false>;
+  return w ? run_fronts<MODE, false, true> : run_fronts<MODE, false, false>;
+}
 
 // Runs every front of one scan direction on `stream`; returns the first
 // CUDA error (0 when all launches were accepted).
@@ -143,17 +213,17 @@ extern "C" int mgm_fused_wavefront(const WaveParams* params, void* stream) {
   const WaveParams p = *params;
   if (p.L < 1 || p.L > MGM_MAX_LABELS || p.Mp > MGM_MAX_PLANES ||
       p.Ml > MGM_MAX_RECS || p.mgm < 1 || p.mgm > MGM_MAX_RANKS ||
-      p.fstep < 1 || p.slope < 0)
+      p.fstep < 1 || p.slope < 0 || p.nch < 1)
     return (int)cudaErrorInvalidValue;
-  const int T = p.fstep * (p.C - 1) + p.slope * (p.R - 1) + 1;
-  const dim3 grid(p.R, p.Mp);
-  const int threads = (p.L + 31) / 32 * 32;
-  cudaStream_t s = (cudaStream_t)stream;
-  for (int k = 0; k < T; ++k) {
-    const int t = p.reverse ? T - 1 - k : k;
-    front_kernel<<<grid, threads, 0, s>>>(p, t, t % (p.D + 1));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  const bool fh = p.use_fh != 0, w = p.w8 != nullptr;
+  RunFronts run;
+  switch (p.mode) {
+    case MGM_COST_AD: run = pick<MGM_COST_AD>(fh, w); break;
+    case MGM_COST_SD: run = pick<MGM_COST_SD>(fh, w); break;
+    case MGM_COST_CENSUS: run = pick<MGM_COST_CENSUS>(fh, w); break;
+    case MGM_COST_BTAD: run = pick<MGM_COST_BTAD>(fh, w); break;
+    case MGM_COST_BTSD: run = pick<MGM_COST_BTSD>(fh, w); break;
+    default: return (int)cudaErrorInvalidValue;
   }
-  return 0;
+  return run(p, (cudaStream_t)stream);
 }

@@ -12,8 +12,10 @@
 
 // One scan direction of the fused cost + MGM recursion (K1).
 struct WaveParams {
-  const float* left;   // (N, R, C, nch) left image of each side
-  const float* right;  // (N, R, C, nch) right image of each side
+  const void* left;    // (N, R, C, nch) left image of each side: float32,
+                       // int32 census words, or BT's [I, Imin, Imax]
+  const void* right;   // (N, R, C, nch) right image of each side
+  const float* w8;     // (N, R, C, 8) edge weights of each side, or 0
   float* out;          // (Mp, R, C, L) per-plane sums, image layout
   float* hist;         // (D + 1, Ml, R, L) ring of per-recursion fronts
   float* mins;         // (D + 1, Ml, R) their minima over labels
@@ -22,23 +24,27 @@ struct WaveParams {
   // slope and fronts per column step of the launch's space: A/B (slope,
   // 1), V (0, 1), the parity spaces PA/PB (1, 2)
   int slope, fstep;
-  int mgm, sd, accumulate, reverse;
-  float tmax, p1, p2, kappa;
-  // plane i: side, label-0 disparity, label window, skew origin and
-  // sign (col = (t - a0 + ssgn * slope * r) / fstep, the row sitting
-  // out fronts where that does not divide), whether it folds kappa*CC,
-  // and the recursions that sum into it, in recursion order
-  int plane_side[MGM_MAX_PLANES], plane_gmin[MGM_MAX_PLANES];
-  int plane_lo[MGM_MAX_PLANES], plane_hi[MGM_MAX_PLANES];
-  int plane_a0[MGM_MAX_PLANES], plane_ssgn[MGM_MAX_PLANES];
-  int plane_fold[MGM_MAX_PLANES], plane_nrec[MGM_MAX_PLANES];
-  int plane_recs[MGM_MAX_PLANES][MGM_MAX_RECS];
-  // recursion m: its coupled messages (indices into the combos) and
-  // border bits (1 need_left, 2 need_right, 4 need_top, 8 need_bottom)
-  int rec_ranks[MGM_MAX_RECS][MGM_MAX_RANKS];
-  int rec_border[MGM_MAX_RECS];
+  int mgm, mode, use_fh, accumulate, reverse;  // mode: MGM_COST_*
+  float tmax, p1, p2, kappa, inv_nw;           // inv_nw: census 1/nch
+  // plane i: label-0 disparity, label window, skew origin and sign
+  // (col = (t - a0 + ssgn * slope * r) / fstep, the row sitting out
+  // fronts where that does not divide), side, whether it folds
+  // kappa*CC, and the recursions that sum into it, in recursion order.
+  // The small tables are bytes: the struct goes with every front
+  // launch, and bytes keep it at 864 (int tables: 2,684).
+  int plane_gmin[MGM_MAX_PLANES], plane_lo[MGM_MAX_PLANES];
+  int plane_hi[MGM_MAX_PLANES], plane_a0[MGM_MAX_PLANES];
+  signed char plane_side[MGM_MAX_PLANES], plane_ssgn[MGM_MAX_PLANES];
+  signed char plane_fold[MGM_MAX_PLANES], plane_nrec[MGM_MAX_PLANES];
+  unsigned char plane_recs[MGM_MAX_PLANES][MGM_MAX_RECS];
+  // recursion m: its coupled messages (indices into the combos), the
+  // weight channel of each (w8's last axis), and border bits
+  // (1 need_left, 2 need_right, 4 need_top, 8 need_bottom)
+  unsigned char rec_ranks[MGM_MAX_RECS][MGM_MAX_RANKS];
+  unsigned char rec_wch[MGM_MAX_RECS][MGM_MAX_RANKS];
+  unsigned char rec_border[MGM_MAX_RECS];
   // combo k: front lag and row roll (the neighbour row is r - roll)
-  int combo_lag[MGM_MAX_COMBOS], combo_roll[MGM_MAX_COMBOS];
+  signed char combo_lag[MGM_MAX_COMBOS], combo_roll[MGM_MAX_COMBOS];
 };
 
 #define MGM_MAX_OFFS 5
@@ -65,12 +71,13 @@ struct WtaParams {
   const float* vol;    // (nspaces * N, R, C, L), space-major planes
   float* disp;         // (N, R, C)
   float* cost;         // (N, R, C)
+  float* taps;         // (N, R, 4, C) S[oc-1 .. oc+2], or 0
   int N, nspaces, R, C, L;
   int side_gmin[MGM_MAX_SIDES], side_lo[MGM_MAX_SIDES],
       side_hi[MGM_MAX_SIDES];
 };
 
-// Pointwise cost families of K8 (the order of cuda_cost.MODES).
+// Pointwise cost families of K1 and K8 (the order of cuda_cost.MODES).
 #define MGM_COST_AD 0
 #define MGM_COST_SD 1
 #define MGM_COST_CENSUS 2

@@ -29,17 +29,8 @@
 // operation for operation (built with --fmad=false, no fast math).
 // Minima keep NaN as torch.minimum does: border messages may be
 // inf - inf, and the interior select never reads them.
-#include <cuda_runtime.h>
-#include <math.h>
-
-#include "mgm_kernels.h"
-
-// torch.minimum on CUDA: a NaN operand wins, else the smaller value
-__device__ __forceinline__ float nmin(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return b < a ? b : a;
-}
+// The SGM and FH messages are mgm_device.cuh's, shared with K1.
+#include "mgm_device.cuh"
 
 __global__ void scan_front(const ScanParams p, int t, int r0) {
   __shared__ float buf[MGM_MAX_LABELS];
@@ -73,31 +64,13 @@ __global__ void scan_front(const ScanParams p, int t, int r0) {
         p2w = d * p.p2;
       }
       if (!p.use_fh) {
-        // min(Lk, min(Lk[l-1], Lk[l+1]) + P1, mk + P2) - mk
         const float lk = act ? h[l] : INFINITY;
         const float lm = act && l > 0 ? h[l - 1] : INFINITY;
         const float lp = act && l < p.L - 1 ? h[l + 1] : INFINITY;
-        msg[k] = nmin(nmin(lk, nmin(lm, lp) + p1w), mk + p2w) - mk;
+        msg[k] = sgm_msg(lk, lm, lp, mk, p1w, p2w);
       } else {
-        // min over labels j of Lk[j] + P1*|l - j|, capped at mk + P2:
-        // doubling shifts up, then down (pallas_wavefront._fh_msg)
-        float v = act && win ? h[l] : INFINITY;
-        for (int s = 1; s < p.L; s *= 2) {
-          buf[l] = v;
-          __syncthreads();
-          const float sh = act && l >= s ? buf[l - s] : INFINITY;
-          v = nmin(v, sh + p1w * (float)s);
-          __syncthreads();
-        }
-        for (int s = 1; s < p.L; s *= 2) {
-          buf[l] = v;
-          __syncthreads();
-          const float sh = act && l + s < p.L ? buf[l + s] : INFINITY;
-          v = nmin(v, sh + p1w * (float)s);
-          __syncthreads();
-        }
-        v = nmin(v, mk + p2w);
-        msg[k] = v - mk;
+        msg[k] = fh_msg(buf, act && win ? h[l] : INFINITY, p.L, mk, p1w,
+                        p2w);
       }
     }
     float e;

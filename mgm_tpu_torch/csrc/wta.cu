@@ -9,10 +9,13 @@
 // label window where -inf < s < inf (NaN excluded) and +inf elsewhere,
 // cost = min(cand), idx = the lowest label with cand == cost, and
 // disp = gmin + idx.  An all-invalid window gives idx 0 and cost +inf.
+// With `taps`, also the four raw sums S[oc-1 .. oc+2] that the subpixel
+// fits read, (N, R, 4, C), oc = clip(idx, 1, max(L - 3, 1)).
 //
 // Bound: one read of the (nspaces*N, R, C, L) float volume.  One warp
 // per pixel: lanes stride the label axis (coalesced reads) and a
-// shuffle reduction keeps the lowest label among equal minima.
+// shuffle reduction keeps the lowest label among equal minima; lanes
+// 0-3 then gather the taps.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -53,6 +56,20 @@ __global__ void wta_kernel(const WtaParams p) {
   if (lane == 0) {
     p.disp[pix] = (float)(p.side_gmin[n] + bi);
     p.cost[pix] = best;
+  }
+  if (p.taps && lane < 4) {
+    // every lane holds the winner: lane k writes tap k, the raw sum s
+    // at clip(oc - 1 + k, 0, L - 1), oc = clip(idx, 1, max(L - 3, 1)),
+    // summed as above so a NaN sum stays NaN (pallas_fused.py:228-240)
+    const int top = p.L - 3 > 1 ? p.L - 3 : 1;
+    const int oc = bi < 1 ? 1 : (bi > top ? top : bi);
+    int pos = oc - 1 + lane;
+    pos = pos < 0 ? 0 : (pos > p.L - 1 ? p.L - 1 : pos);
+    const float* a = p.vol + (size_t)n * plane + (size_t)rc * p.L + pos;
+    float s = a[0];
+    for (int si = 1; si < p.nspaces; ++si) s = s + a[(size_t)si * p.N * plane];
+    const long long r = rc / p.C;
+    p.taps[(((size_t)n * p.R + r) * 4 + lane) * p.C + (rc - r * p.C)] = s;
   }
 }
 

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.h"))
+    return sorted(p for p in CSRC.iterdir()
+                  if p.suffix in (".cu", ".cuh", ".h"))
 
 
 def _nvcc() -> str:

@@ -10,6 +10,11 @@ PyTorch version and a launch counter:
      the JAX module does).  Label l reads the right image's column
      x + gmin + l clamped to the image, as the TPU's edge-padded slice.
 
+The cost of one pixel pair is `pointwise_cost`, the plain version of
+csrc/mgm_device.cuh's device function of that name; K1 computes the
+same function in flight (ops/cuda_fused.py), so both kernels and both
+plain versions share one definition each.
+
 The volume comes out as (H, W, L), labels fastest, which
 build_cost_volume and the dense solver read; the TPU's (L, W, H)
 layout and the transposes around it are not carried over.
@@ -69,59 +74,50 @@ def _popcount32(x):
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
-def _per_label(u, v, gmin: int, L: int, fn):
-    """Stack fn(u, v_shifted_by_label) over labels -> (H, W, L)."""
-    W = v.shape[1]
-    v_pad, left = pad_cols(v, gmin, L)
-    return torch.stack([fn(u, shifted_cols(v_pad, left, gmin, l, W))
-                        for l in range(L)], -1)
+def pointwise_cost(u, v, mode: str):
+    """The raw cost of each pixel pair, the plain version of
+    mgm_device.cuh's pointwise_cost (K8 and K1 compute it on the card).
 
-
-def pointwise_volume_plain(u, v, *, gmin: int, L: int, mode: str):
-    """Plain PyTorch version of K8 (pallas_cost.py:31-68).
-
-    u, v: (H, W, Ck) images: float32 channels (ad/sd), packed census
-    words as int32 (the kernel's type), or BT's [I, Imin, Imax] blocks
-    of C channels each (Ck = 3C).  Returns the (H, W, L) float32 raw
+    u, v: broadcastable (..., Ck) channels-last tensors: float32 images
+    (ad/sd), packed census words as int32, or BT's [I, Imin, Imax]
+    blocks of C channels each (Ck = 3C).  Returns the (...) float32
     costs, channels summed left to right."""
     if mode == "census":
-        inv_nw = torch.tensor(1.0 / u.shape[2], dtype=torch.float32,
+        inv_nw = torch.tensor(1.0 / u.shape[-1], dtype=torch.float32,
                               device=u.device)
         # int64 keeps the popcount arithmetic free of sign bits; & drops
         # the sign extension of the int32 words
-        cu, cv = ((x.to(torch.int64) & 0xFFFFFFFF) for x in (u, v))
-
-        def ham(a, b_sh):
-            return _popcount32(a ^ b_sh).sum(-1).to(torch.float32) * inv_nw
-
-        return _per_label(cu, cv, gmin, L, ham)
-
+        x = (u.to(torch.int64) ^ v.to(torch.int64)) & 0xFFFFFFFF
+        return _popcount32(x).sum(-1).to(torch.float32) * inv_nw
     if mode in ("ad", "sd"):
-        def diff(a, b_sh):
-            d = (a - b_sh).abs()
-            if mode == "sd":
-                d = d * d
-            return chsum(d)
-
-        return _per_label(u, v, gmin, L, diff)
-
+        d = (u - v).abs()
+        if mode == "sd":
+            d = d * d
+        return chsum(d)
     if mode in ("btad", "btsd"):
-        C = u.shape[2] // 3
+        C = u.shape[-1] // 3
         IL, umin, umax = u[..., :C], u[..., C:2 * C], u[..., 2 * C:]
+        IR, vmin, vmax = v[..., :C], v[..., C:2 * C], v[..., 2 * C:]
         zero = torch.zeros((), dtype=torch.float32, device=u.device)
-
-        def bt_cost(_, sh):
-            IR, vmin, vmax = sh[..., :C], sh[..., C:2 * C], sh[..., 2 * C:]
-            dLR = -fmin3(zero, -(IL - vmax), -(vmin - IL))
-            dRL = -fmin3(zero, -(IR - umax), -(umin - IR))
-            bt = torch.minimum(dLR, dRL).abs()
-            if mode == "btsd":
-                bt = bt * bt
-            return chsum(bt)
-
-        return _per_label(u, v, gmin, L, bt_cost)
-
+        dLR = -fmin3(zero, -(IL - vmax), -(vmin - IL))
+        dRL = -fmin3(zero, -(IR - umax), -(umin - IR))
+        bt = torch.minimum(dLR, dRL).abs()
+        if mode == "btsd":
+            bt = bt * bt
+        return chsum(bt)
     raise ValueError(f"unknown distance {mode}")
+
+
+def pointwise_volume_plain(u, v, *, gmin: int, L: int, mode: str):
+    """Plain PyTorch version of K8 (pallas_cost.py:31-68): u, v are
+    (H, W, Ck) images as pointwise_cost takes them; label l matches the
+    right image's column x + gmin + l, clamped to the image.  Returns
+    the (H, W, L) float32 raw costs."""
+    W = v.shape[1]
+    v_pad, left = pad_cols(v, gmin, L)
+    return torch.stack([pointwise_cost(u, shifted_cols(v_pad, left, gmin,
+                                                       l, W), mode)
+                        for l in range(L)], -1)
 
 
 def pointwise_volume(u, v, *, gmin: int, L: int, mode: str):

@@ -5,9 +5,17 @@ plain PyTorch version and a launch counter:
 
   K1 `fused_wavefront` (csrc/fused_wavefront.cu) replaces
      pallas_fused._kernel: one scan direction of the fused cost + MGM
-     recursion over every (side x space) plane of a launch.
+     recursion over every (side x space) plane of a launch, for every
+     pointwise cost family, the SGM or truncated-linear (FH) potential
+     and optional edge weights.
   K2 `wta` (csrc/wta.cu) replaces pallas_fused._wta_kernel: the sum of
-     the spaces and the windowed winner-take-all.
+     the spaces, the windowed winner-take-all and optionally the four
+     S taps of the subpixel fits.
+
+The per-label cost and the messages are defined once on each side:
+csrc/mgm_device.cuh on the card (shared with K5 and K8), and
+cuda_cost.pointwise_cost, wavefront._sgm_msg and wavefront._fh_msg in
+the plain versions.
 
 A wrapper runs the plain version only because its tensors lie on the
 CPU; on CUDA tensors it launches the kernel or raises.  `launches`
@@ -40,6 +48,8 @@ import torch
 
 from . import _build
 from .common import INF, shift_fill
+from .cuda_cost import MODES, pointwise_cost
+from .wavefront import _fh_msg, _sgm_msg
 
 # the limits of csrc/mgm_kernels.h
 MAX_PLANES, MAX_RECS, MAX_COMBOS, MAX_RANKS = 8, 32, 16, 4
@@ -48,25 +58,28 @@ MAX_SIDES, MAX_LABELS = 16, 1024
 
 class _WaveParams(ctypes.Structure):
     _fields_ = (
-        [(f, ctypes.c_void_p) for f in ("left", "right", "out", "hist",
+        [(f, ctypes.c_void_p) for f in ("left", "right", "w8", "out", "hist",
                                         "mins")]
         + [(f, ctypes.c_int) for f in ("R", "C", "L", "nch", "Mp", "Ml",
-                                       "D", "slope", "fstep", "mgm", "sd",
-                                       "accumulate", "reverse")]
-        + [(f, ctypes.c_float) for f in ("tmax", "p1", "p2", "kappa")]
+                                       "D", "slope", "fstep", "mgm", "mode",
+                                       "use_fh", "accumulate", "reverse")]
+        + [(f, ctypes.c_float) for f in ("tmax", "p1", "p2", "kappa",
+                                         "inv_nw")]
         + [(f, ctypes.c_int * MAX_PLANES)
-           for f in ("plane_side", "plane_gmin", "plane_lo", "plane_hi",
-                     "plane_a0", "plane_ssgn", "plane_fold", "plane_nrec")]
-        + [("plane_recs", (ctypes.c_int * MAX_RECS) * MAX_PLANES),
-           ("rec_ranks", (ctypes.c_int * MAX_RANKS) * MAX_RECS),
-           ("rec_border", ctypes.c_int * MAX_RECS),
-           ("combo_lag", ctypes.c_int * MAX_COMBOS),
-           ("combo_roll", ctypes.c_int * MAX_COMBOS)])
+           for f in ("plane_gmin", "plane_lo", "plane_hi", "plane_a0")]
+        + [(f, ctypes.c_int8 * MAX_PLANES)
+           for f in ("plane_side", "plane_ssgn", "plane_fold", "plane_nrec")]
+        + [("plane_recs", (ctypes.c_uint8 * MAX_RECS) * MAX_PLANES),
+           ("rec_ranks", (ctypes.c_uint8 * MAX_RANKS) * MAX_RECS),
+           ("rec_wch", (ctypes.c_uint8 * MAX_RANKS) * MAX_RECS),
+           ("rec_border", ctypes.c_uint8 * MAX_RECS),
+           ("combo_lag", ctypes.c_int8 * MAX_COMBOS),
+           ("combo_roll", ctypes.c_int8 * MAX_COMBOS)])
 
 
 class _WtaParams(ctypes.Structure):
     _fields_ = (
-        [(f, ctypes.c_void_p) for f in ("vol", "disp", "cost")]
+        [(f, ctypes.c_void_p) for f in ("vol", "disp", "cost", "taps")]
         + [(f, ctypes.c_int) for f in ("N", "nspaces", "R", "C", "L")]
         + [(f, ctypes.c_int * MAX_SIDES)
            for f in ("side_gmin", "side_lo", "side_hi")])
@@ -91,10 +104,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
+def _check(name: str, t: torch.Tensor, shape: tuple, device,
+           dtype=torch.float32) -> None:
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
             or not t.is_contiguous() or t.device != device):
-        raise ValueError(f"{name}: want a contiguous float32 {shape} tensor "
+        raise ValueError(f"{name}: want a contiguous {dtype} {shape} tensor "
                          f"on {device}, got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device}")
 
@@ -126,23 +140,28 @@ def _valid_rows(t: int, a0: int, ssgn: int, slope: int, C: int, R: int,
 
 def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
                           combos, L, slope, fstep, mgm, mode, tmax, p1, p2,
-                          kappa, reverse):
+                          kappa, reverse, use_fh=False, w8=None):
     """Plain PyTorch version of K1: a loop over fronts with tensor ops
     over (planes or recursions, R, L), in the fused kernel's order of
     operations (pallas_fused.py:834-949), not the dense solver's.
 
-    left/right: (N, R, C, nch) float32 images per side.
+    left/right: (N, R, C, nch) images per side: float32 (ad, sd), int32
+      census words, or BT's [I, Imin, Imax] float32 blocks.
     out: the (Mp, R, C, L) volume the launch writes, or adds onto with
       `accumulate` (the backward launch onto the forward one's output).
     planes: (side, gmin, lo, hi, a0, ssgn, fold) per output plane.
     slope, fstep: the launch space's front map (module docstring).
-    mspecs: (plane, ranks, border) per recursion; ranks index `combos`,
-      border = (need_left, need_right, need_top, need_bottom).
+    mspecs: (plane, ranks, border, wch) per recursion; ranks index
+      `combos`, border = (need_left, need_right, need_top, need_bottom),
+      wch = the weight channel of each coupled dep.
     combos: (lag, roll) per distinct message source: the front t -+ lag,
       row r - roll.
+    mode: a cuda_cost.MODES family; tmax: the truncation.
+    use_fh: the truncated-linear potential (FH messages), else SGM.
+    w8: (N, R, C, 8) float32 edge weights of each side, or None.
     Returns `out`."""
     dev = left.device
-    _, R, C, nch = left.shape
+    _, R, C, _ = left.shape
     Mp, Ml = len(planes), len(mspecs)
     D = max(lag for lag, _ in combos)
     T = fstep * (C - 1) + slope * (R - 1) + 1
@@ -160,9 +179,21 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
     lab = torch.arange(L, device=dev)
     in_win = (lab >= lo) & (lab <= hi)             # (Mp, 1, L)
     pidx = torch.arange(Mp, device=dev)[:, None]
-    # a true division (a 0-dim tensor on the device: CUDA would turn a
-    # division by a Python number into a reciprocal multiply)
+    # 0-dim tensors: products and sums with them round in float32, as
+    # the kernel's; a true division (CUDA would turn a division by a
+    # Python number into a reciprocal multiply)
+    p1f, p2f = torch.tensor(p1, **f32), torch.tensor(p2, **f32)
     mgm_div = torch.tensor(float(mgm), **f32)
+    halve = mgm == 2 and not use_fh and w8 is None
+    if w8 is not None:
+        rec_plane = torch.tensor([ms[0] for ms in mspecs], device=dev)
+        W8 = w8[side[rec_plane]]                   # (Ml, R, C, 8)
+        # per combo: the weight channel of the dep it is in each
+        # recursion (0 where it is not: that message is never read)
+        wch = torch.tensor([[ms[3][ms[1].index(ci)] if ci in ms[1] else 0
+                             for ms in mspecs] for ci in range(len(combos))],
+                           device=dev)
+        midx = torch.arange(Ml, device=dev)[:, None]
     hist = [(torch.full((Ml, R, L), INF, **f32),
              torch.full((Ml, R), INF, **f32))] * D
 
@@ -173,33 +204,35 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
         u_t = U[pidx, rows, col.clamp(0, C - 1)]    # (Mp, R, nch)
         q = col[..., None] + gmin + lab             # (Mp, R, L)
         v_t = V[pidx[..., None], rows[:, None], q.clamp(0, C - 1)]
-        raw = None
-        for c in range(nch):
-            d = (u_t[..., c, None] - v_t[..., c]).abs()
-            if mode == "sd":
-                d = d * d
-            raw = d if raw is None else raw + d
+        raw = pointwise_cost(u_t[:, :, None], v_t, mode)
         e = torch.where((q >= 0) & (q < C), raw.clamp(max=tmax), tmax)
         # all-invalid window -> 0 (mgm_costvolume.h:410-421)
         anyfin = (in_win & (e < INF)).any(-1, keepdim=True)
         e = torch.where(anyfin, e, 0.0)
         cc = torch.where(in_win & valid[..., None], e, INF)
+        if w8 is not None:
+            # each recursion's weights at the pixels being updated
+            wt = W8[midx, rows, col[rec_plane].clamp(0, C - 1)]  # (Ml, R, 8)
 
         msgs = []
-        for lag, roll in combos:
+        for ci, (lag, roll) in enumerate(combos):
             f, mn = hist[lag - 1]
             if roll:
                 f = shift_fill(f, roll, 1, INF)
                 mn = shift_fill(mn, roll, 1, INF)
             mk = mn[..., None]
-            nb = torch.minimum(shift_fill(f, 1, -1, INF),
-                               shift_fill(f, -1, -1, INF)) + p1
-            msgs.append(torch.minimum(torch.minimum(f, nb), mk + p2) - mk)
+            if w8 is not None:
+                d = wt[midx, rows, wch[ci][:, None]][..., None]   # (Ml, R, 1)
+                p1w, p2w = d * p1f, d * p2f
+            else:
+                p1w, p2w = p1f, p2f
+            msgs.append(_fh_msg(f, mk, p1w, p2w, None) if use_fh
+                        else _sgm_msg(f, mk, p1w, p2w))
 
         news = []
         sums = [None] * Mp
-        for m, (pi, ranks, border) in enumerate(mspecs):
-            if mgm == 2:
+        for m, (pi, ranks, border, _) in enumerate(mspecs):
+            if halve:
                 # update_cost2 halves each term (mgm_core.cc:83-84)
                 em = msgs[ranks[0]][m] * 0.5 + msgs[ranks[1]][m] * 0.5
             else:
@@ -242,7 +275,8 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
 
 
 def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
-                    L, slope, fstep, mgm, mode, tmax, p1, p2, kappa, reverse):
+                    L, slope, fstep, mgm, mode, tmax, p1, p2, kappa, reverse,
+                    use_fh=False, w8=None):
     """K1: one scan direction of the fused recursion (arguments as in
     fused_wavefront_plain).  CPU tensors take the plain version; CUDA
     tensors launch csrc/fused_wavefront.cu, T front kernels on the
@@ -250,7 +284,7 @@ def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
     kw = dict(accumulate=accumulate, planes=planes, mspecs=mspecs,
               combos=combos, L=L, slope=slope, fstep=fstep, mgm=mgm,
               mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
-              reverse=reverse)
+              reverse=reverse, use_fh=use_fh, w8=w8)
     dev = left.device
     if dev.type == "cpu":
         return fused_wavefront_plain(left, right, out, **kw)
@@ -260,25 +294,32 @@ def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
     Mp, Ml, nco = len(planes), len(mspecs), len(combos)
     if (Mp > MAX_PLANES or Ml > MAX_RECS or nco > MAX_COMBOS
             or not 1 <= mgm <= MAX_RANKS or not 1 <= L <= MAX_LABELS
-            or mode not in ("ad", "sd") or slope < 0 or fstep < 1):
+            or mode not in MODES or slope < 0 or fstep < 1):
         raise ValueError(f"fused_wavefront: outside the kernel's limits "
                          f"(planes {Mp}, recursions {Ml}, combos {nco}, "
                          f"mgm {mgm}, L {L}, mode {mode!r}, slope {slope}, "
                          f"fstep {fstep})")
-    _check("left", left, (N, R, C, nch), dev)
-    _check("right", right, (N, R, C, nch), dev)
+    dtype = torch.int32 if mode == "census" else torch.float32
+    if mode in ("btad", "btsd") and nch % 3:
+        raise ValueError(f"fused_wavefront: BT needs [I, Imin, Imax] "
+                         f"blocks, got {nch} channels")
+    _check("left", left, (N, R, C, nch), dev, dtype)
+    _check("right", right, (N, R, C, nch), dev, dtype)
     _check("out", out, (Mp, R, C, L), dev)
+    if w8 is not None:
+        _check("w8", w8, (N, R, C, 8), dev)
     D = max(lag for lag, _ in combos)
     hist = torch.empty((D + 1, Ml, R, L), dtype=torch.float32, device=dev)
     mins = torch.empty((D + 1, Ml, R), dtype=torch.float32, device=dev)
 
     p = _WaveParams(
-        left=left.data_ptr(), right=right.data_ptr(), out=out.data_ptr(),
+        left=left.data_ptr(), right=right.data_ptr(),
+        w8=None if w8 is None else w8.data_ptr(), out=out.data_ptr(),
         hist=hist.data_ptr(), mins=mins.data_ptr(), R=R, C=C, L=L, nch=nch,
         Mp=Mp, Ml=Ml, D=D, slope=slope, fstep=fstep, mgm=mgm,
-        sd=int(mode == "sd"),
+        mode=MODES.index(mode), use_fh=int(use_fh),
         accumulate=int(accumulate), reverse=int(reverse),
-        tmax=tmax, p1=p1, p2=p2, kappa=kappa)
+        tmax=tmax, p1=p1, p2=p2, kappa=kappa, inv_nw=1.0 / nch)
     for i, (side, gmin, lo, hi, a0, ssgn, fold) in enumerate(planes):
         recs = [m for m, spec in enumerate(mspecs) if spec[0] == i]
         p.plane_side[i], p.plane_gmin[i] = side, gmin
@@ -287,9 +328,10 @@ def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
         p.plane_fold[i], p.plane_nrec[i] = int(fold), len(recs)
         for k, m in enumerate(recs):
             p.plane_recs[i][k] = m
-    for m, (_, ranks, border) in enumerate(mspecs):
+    for m, (_, ranks, border, wch) in enumerate(mspecs):
         for k, ci in enumerate(ranks):
             p.rec_ranks[m][k] = ci
+            p.rec_wch[m][k] = wch[k]
         p.rec_border[m] = sum(1 << b for b, need in enumerate(border)
                               if need)
     for k, (lag, roll) in enumerate(combos):
@@ -306,15 +348,18 @@ fused_wavefront.launches = 0
 
 # ---------------------------------------------------------------- K2 ----
 
-def wta_plain(vol, *, nspaces, sides):
-    """Plain PyTorch version of K2 (pallas_fused.py:211-227).
+def wta_plain(vol, *, nspaces, sides, want_taps=False):
+    """Plain PyTorch version of K2 (pallas_fused.py:211-240).
 
     vol: (nspaces * N, R, C, L) space-major planes; sides: (gmin, lo, hi)
-    per side.  Returns (disp, cost), each (N, R, C) float32."""
+    per side.  Returns (disp, cost), each (N, R, C) float32, and with
+    `want_taps` also the (N, R, 4, C) taps: the space sum s at
+    clip(oc - 1 + k, 0, L - 1), oc = clip(idx, 1, max(L - 3, 1)), the
+    four values the subpixel fits read (refine.subpixel_refine_taps)."""
     N = len(sides)
     L = vol.shape[-1]
     lab = torch.arange(L, device=vol.device)
-    disps, costs = [], []
+    disps, costs, taps = [], [], []
     for n, (gmin, lo, hi) in enumerate(sides):
         s = vol[n]
         for si in range(1, nspaces):
@@ -325,16 +370,22 @@ def wta_plain(vol, *, nspaces, sides):
         idx = torch.where(cand == cost[..., None], lab, L).amin(-1)
         disps.append((idx + gmin).to(torch.float32))
         costs.append(cost)
-    return torch.stack(disps), torch.stack(costs)
+        if want_taps:
+            oc = idx.clamp(1, max(L - 3, 1))
+            pos = (oc[..., None] + torch.arange(-1, 3, device=vol.device))
+            taps.append(s.gather(-1, pos.clamp(0, L - 1)).movedim(-1, -2))
+    out = (torch.stack(disps), torch.stack(costs))
+    return out + (torch.stack(taps),) if want_taps else out
 
 
-def wta(vol, *, nspaces, sides):
-    """K2: sum of the spaces + windowed WTA (arguments as in wta_plain).
-    CPU tensors take the plain version; CUDA tensors launch
-    csrc/wta.cu."""
+def wta(vol, *, nspaces, sides, want_taps=False):
+    """K2: sum of the spaces + windowed WTA (+ the taps), arguments and
+    results as in wta_plain.  CPU tensors take the plain version; CUDA
+    tensors launch csrc/wta.cu."""
     dev = vol.device
     if dev.type == "cpu":
-        return wta_plain(vol, nspaces=nspaces, sides=sides)
+        return wta_plain(vol, nspaces=nspaces, sides=sides,
+                         want_taps=want_taps)
     if dev.type != "cuda":
         raise ValueError(f"wta: unsupported device {dev}")
     N = len(sides)
@@ -344,15 +395,19 @@ def wta(vol, *, nspaces, sides):
     _check("vol", vol, (nspaces * N, R, C, L), dev)
     disp = torch.empty((N, R, C), dtype=torch.float32, device=dev)
     cost = torch.empty((N, R, C), dtype=torch.float32, device=dev)
+    taps = (torch.empty((N, R, 4, C), dtype=torch.float32, device=dev)
+            if want_taps else None)
     p = _WtaParams(vol=vol.data_ptr(), disp=disp.data_ptr(),
-                   cost=cost.data_ptr(), N=N, nspaces=nspaces, R=R, C=C, L=L)
+                   cost=cost.data_ptr(),
+                   taps=None if taps is None else taps.data_ptr(), N=N,
+                   nspaces=nspaces, R=R, C=C, L=L)
     for n, (gmin, lo, hi) in enumerate(sides):
         p.side_gmin[n], p.side_lo[n], p.side_hi[n] = gmin, lo, hi
     err = _lib().mgm_wta(ctypes.byref(p), _stream(dev))
     if err:
         raise RuntimeError(f"wta: CUDA error {err}")
     wta.launches += 1
-    return disp, cost
+    return (disp, cost, taps) if want_taps else (disp, cost)
 
 
 wta.launches = 0

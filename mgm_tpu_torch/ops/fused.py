@@ -11,16 +11,18 @@ accumulates onto the forward launch's planes.
 
 `mgm_solve_fused` ports the JAX solve (fused.py:512-672) for every
 schedule of `split_passes` (ndir 1-16, TSGM 1-4) with constant label
-windows, the SGM potential, unit weights and ad/sd costs.  Every group
-(A/B, V, PA/PB) runs through K1 into one image-layout volume with the
-spaces in the order A, B, V, PA, PB.  Without leftover passes K2 sums
-the spaces and takes the WTA.  With them (ndir > 8) the knight passes
-run dense: K8 builds the cost volumes, `aggregate` runs K6 -> K5 -> K7
-on the leftover passes, and the S assembly and WTA are tensor code.
+windows: every pointwise cost family in flight (ad, sd, census words,
+btad/btsd blocks), the SGM or truncated-linear (FH) potential, and
+optional edge weights.  Every group (A/B, V, PA/PB) runs through K1
+into one image-layout volume with the spaces in the order A, B, V,
+PA, PB.  Without leftover passes K2 sums the spaces and takes the WTA
+(and the subpixel taps).  With them (ndir > 8) the knight passes run
+dense: K8 builds the cost volumes, `aggregate` runs K6 -> K5 -> K7 on
+the leftover passes, and the S assembly, WTA and taps are tensor code.
 The TPU's K3 (`pallas_fused.unskew_planes`) has no counterpart: K1
 already stores the image layout, so the assembled sum has nothing to
-unskew.  FH, in-flight census/BT costs, weights, per-pixel windows
-and batches raise NotImplementedError and name their ROADMAP item.
+unskew.  Per-pixel windows (ROADMAP queue 1 item 6) take no argument
+yet; batches raise NotImplementedError naming item 8.
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ import torch
 
 from ..solver import window_wta
 from . import cuda_fused
-from .aggregate import aggregate
-from .cost import build_cost_volume
+from .aggregate import PASS_TABLE, aggregate
+from .cost import _bt_aux, build_cost_volume
+from .refine import taps_from_S
 
 # image-space causal dirs dir1..dir4 per pass (mgm_core.cc:463-471);
 # (dx, dy) with dy the row offset
@@ -166,10 +169,12 @@ def _space_map(space: str, slope: int, R: int):
             "PB": (1, 2, R - 1, 1)}[space]
 
 
-def group_launches(group, sides, *, R: int, kappa: float, fold: bool):
+def group_launches(group, sides, *, R: int, mgm: int, kappa: float,
+                   fold: bool):
     """Per-launch K1 arguments of one group of split_passes
     (fused.py:333-431): planes, mspecs, combos, slope, fstep and
-    reverse.
+    reverse.  A recursion's weight channels are its pass's
+    PASS_TABLE wch, one per coupled dep (fused.py:407-420).
 
     group: (slope, spaces, launches); sides: (gmin, lo, hi) per side.
     planes = (side, gmin, lo, hi, a0, ssgn, fold), space-major.  With
@@ -190,16 +195,16 @@ def group_launches(group, sides, *, R: int, kappa: float, fold: bool):
     out = []
     for k, (d, passes) in enumerate(launches):
         recs = []
-        for _, space, ranks, border in passes:
+        for pid, space, ranks, border in passes:
             if fstep == 2:
                 ranks = tuple((lag, -dy) for lag, dy in ranks)
-            recs.append((space, ranks, border))
+            recs.append((space, ranks, border, PASS_TABLE[pid].wch[:mgm]))
         combos = []
-        for _, ranks, _ in recs:
+        for _, ranks, _, _ in recs:
             combos += [c for c in ranks if c not in combos]
         mspecs = tuple((plane_ix[(n, space)],
-                        tuple(combos.index(c) for c in ranks), border)
-                       for space, ranks, border in recs
+                        tuple(combos.index(c) for c in ranks), border, wch)
+                       for space, ranks, border, wch in recs
                        for n in range(len(sides)))
         lp = tuple(planes) if k == 0 else tuple(p[:6] + (False,)
                                                 for p in planes)
@@ -210,13 +215,15 @@ def group_launches(group, sides, *, R: int, kappa: float, fold: bool):
 
 def fused_planes(lefts, rights, *, sides, L: int, groups, mgm: int,
                  p1: float, p2: float, mode: str, tmax: float, kappa: float,
-                 wavefront=None):
+                 use_fh: bool = False, w8=None, wavefront=None):
     """Every launch of `groups` (from split_passes) through `wavefront`:
     K1 (cuda_fused.fused_wavefront) when None; tests and the smoke run
     pass its plain version to compare.  The first group folds kappa*CC
     (JAX's fold_group, fused.py:456-464).
 
-    lefts/rights: (N, R, C, nch) float32 images per side.  Returns the
+    lefts/rights: (N, R, C, nch) images per side as K1 takes them
+    (float32, int32 census words, or BT's [I, Imin, Imax] blocks);
+    w8: (N, R, C, 8) edge weights or None.  Returns the
     (nspaces * N, R, C, L) volume, spaces in the order A, B, V, PA, PB
     (each group's launches write one contiguous slice of planes), and
     nspaces."""
@@ -229,10 +236,11 @@ def fused_planes(lefts, rights, *, sides, L: int, groups, mgm: int,
     for g, group in enumerate(groups):
         part = vol[first * N:(first + len(group[1])) * N]
         first += len(group[1])
-        for k, kw in enumerate(group_launches(group, sides, R=R, kappa=kappa,
-                                              fold=g == 0)):
+        for k, kw in enumerate(group_launches(group, sides, R=R, mgm=mgm,
+                                              kappa=kappa, fold=g == 0)):
             wavefront(lefts, rights, part, accumulate=k > 0, L=L, mgm=mgm,
-                      mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa, **kw)
+                      mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
+                      use_fh=use_fh, w8=w8, **kw)
     return vol, nspaces
 
 
@@ -262,64 +270,83 @@ def assemble_swta(lsum, *, sides, L: int, fix_overcount: bool):
     return window_wta(s_raw, in_cc, gmin)
 
 
-def _dense_cc(lefts, rights, *, sides, L: int, mode: str,
-              trunc_dist: float):
+def side_images(u_p, v_p, *, N: int, mode: str):
+    """(lefts, rights): the left and right image of each of the N sides
+    (side n >= 1 swaps them), (N, H, W, nch), as K1 takes them: BT's
+    [I, Imin, Imax] blocks, built once an image (fused.py:560-562), the
+    others as they are."""
+    if mode in ("btad", "btsd"):
+        u_p, v_p = (torch.cat([a, *_bt_aux(a)], -1) for a in (u_p, v_p))
+    return (torch.stack([u_p, v_p][:N]).contiguous(),
+            torch.stack([v_p, u_p][:N]).contiguous())
+
+
+def _dense_cc(u_p, v_p, *, sides, L: int, mode: str, trunc_dist: float):
     """(N, H, W, L) dense cost volumes of each side (through K8), for the
-    leftover passes (fused.py:621-639)."""
-    _, H, W, _ = lefts.shape
-    ccs = []
-    for n, (gmin, lo, hi) in enumerate(sides):
-        full = dict(dtype=torch.int32, device=lefts.device)
-        ccs.append(build_cost_volume(
-            lefts[n], rights[n], torch.full((H, W), lo, **full),
-            torch.full((H, W), hi, **full), gmin, distance=mode, L=L,
-            trunc_dist=trunc_dist))
-    return torch.stack(ccs)
+    leftover passes (fused.py:621-639), from the preprocessed images
+    (build_cost_volume makes BT's blocks itself)."""
+    H, W, _ = u_p.shape
+    full = dict(dtype=torch.int32, device=u_p.device)
+    return torch.stack([build_cost_volume(
+        *((u_p, v_p) if n == 0 else (v_p, u_p)),
+        torch.full((H, W), lo, **full), torch.full((H, W), hi, **full),
+        gmin, distance=mode, L=L, trunc_dist=trunc_dist)
+        for n, (gmin, lo, hi) in enumerate(sides)])
 
 
-def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, *, sides, L: int,
-                    ndir: int, mgm: int, p1: float, p2: float, mode: str,
-                    nch: int, trunc_dist: float, fix_overcount: bool,
-                    use_fh: bool = False):
-    """One MGM solve from preprocessed (H, W, Cch) float32 images, costs
-    fused into the recursion (the JAX solve with want_S=False and
-    constant windows).  Side n >= 1 (the LR check's right solve) swaps
-    the images.  Without leftover passes the spaces go straight to K2's
-    WTA; with them the sum is materialised, the knight passes are added
-    from the dense path, and S is assembled (fused.py:582-672).
+def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, w8=None, *,
+                    sides, L: int, ndir: int, mgm: int, p1: float,
+                    p2: float, mode: str, trunc_dist: float,
+                    fix_overcount: bool, use_fh: bool = False,
+                    want_taps: bool = False):
+    """One MGM solve from preprocessed (H, W, nch) images, costs fused
+    into the recursion (the JAX solve with constant windows and
+    want_S False or "taps").  Side n >= 1 (the LR check's right solve)
+    swaps the images.  Without leftover passes the spaces go straight
+    to K2's WTA (and taps); with them the sum is materialised, the
+    knight passes are added from the dense path, S is assembled and the
+    taps gathered from it (fused.py:582-672).
 
-    sides: (gmin, lo, hi) ints per side.  Returns (disp, cost), each
-    (N, H, W) float32 on the images' device."""
+    u_p, v_p: float32 images, int32 census words for mode "census".
+      Costs truncate at trunc_dist * nch with nch = u_p.shape[-1] (the
+      census word count), before BT's [I, Imin, Imax] blocks are built.
+    w8: (N, H, W, 8) float32 edge weights of each side, or None.
+    sides: (gmin, lo, hi) ints per side.
+    Returns (taps, disp, cost): disp and cost (N, H, W) float32 on the
+    images' device, taps (N, H, 4, W) with `want_taps`, else None."""
     if u_p.ndim != 3:
         raise NotImplementedError("batched pairs: ROADMAP queue 1 item 8")
-    if use_fh:
-        raise NotImplementedError("the truncated-linear potential in the "
-                                  "fused kernel: ROADMAP queue 1 item 5")
-    if mode not in ("ad", "sd"):
-        raise NotImplementedError(f"in-flight {mode!r} costs: ROADMAP "
-                                  "queue 1 item 5")
     N = len(sides)
-    lefts = torch.stack([u_p, v_p][:N]).contiguous()
-    rights = torch.stack([v_p, u_p][:N]).contiguous()
+    tmax = trunc_dist * u_p.shape[-1]
+    lefts, rights = side_images(u_p, v_p, N=N, mode=mode)
+    if w8 is not None:
+        w8 = w8.contiguous()
     groups, leftover = split_passes(ndir, mgm)
     kappa = -float(ndir - 1) if fix_overcount else 0.0
     # with leftover passes the overcount folds on the dense volume
     # (fused.py:619, 647)
     vol, nspaces = fused_planes(
         lefts, rights, sides=sides, L=L, groups=groups, mgm=mgm, p1=p1,
-        p2=p2, mode=mode, tmax=trunc_dist * nch,
-        kappa=0.0 if leftover else kappa)
+        p2=p2, mode=mode, tmax=tmax, kappa=0.0 if leftover else kappa,
+        use_fh=use_fh, w8=w8)
+    del lefts, rights
     if not leftover:
-        return cuda_fused.wta(vol, nspaces=nspaces, sides=sides)
+        res = cuda_fused.wta(vol, nspaces=nspaces, sides=sides,
+                             want_taps=want_taps)
+        return (res[2] if want_taps else None,) + res[:2]
     lsum = assemble_groups(vol, nspaces=nspaces, N=N)
     del vol
-    cc = _dense_cc(lefts, rights, sides=sides, L=L, mode=mode,
+    cc = _dense_cc(u_p, v_p, sides=sides, L=L, mode=mode,
                    trunc_dist=trunc_dist)
-    part = aggregate(cc, p1=p1, p2=p2, ndir=ndir, mgm=mgm,
+    part = aggregate(cc, w8, p1=p1, p2=p2, ndir=ndir, mgm=mgm,
+                     use_fh=use_fh, use_weights=w8 is not None,
                      pids=tuple(leftover))
     if fix_overcount:
         part = part + kappa * cc
     del cc
-    _, disp, cost = assemble_swta(lsum + part, sides=sides, L=L,
+    S, disp, cost = assemble_swta(lsum + part, sides=sides, L=L,
                                   fix_overcount=fix_overcount)
-    return disp, cost
+    if not want_taps:
+        return None, disp, cost
+    gmin = torch.tensor([g for g, _, _ in sides], dtype=torch.int32)
+    return taps_from_S(S, disp, gmin), disp, cost

@@ -1,20 +1,22 @@
 """End-to-end stereo pipeline (counterpart of mgm_tpu/stereo.py).
 
 Mirrors main() at mgm.cc:266-450 of gfacciol/mgm for one image pair on
-one device: scrub inputs -> P1/P2 *= nch -> adaptive weights -> cost
-volume + MGM solve of both LR sides -> winner-take-all -> subpixel
-refinement -> median -> LR check both ways -> backflow.
+one device: scrub inputs -> P1/P2 *= nch -> adaptive weights ->
+prefilter (census, sobelx, gblur) -> cost volume + MGM solve of both
+LR sides -> winner-take-all -> subpixel refinement -> median -> LR
+check both ways -> backflow.
 
 Two solve branches, chosen as the JAX pipeline's `_fused_backend`
 chooses them: NCC costs take the dense branch (the (N, H, W, L) cost
 volume, then `solver.mgm_solve` through the K6/K5/K7 kernels, then
-subpixel refinement); every other cost family takes the fused branch
-(`ops/fused.mgm_solve_fused`: costs in flight in K1 for every pass
-schedule of 1-16 directions at TSGM 1-4, WTA in K2, and the knight
-passes of ndir > 8 through K8 and K6/K5/K7).  The port covers constant
-disparity windows, one iteration and no prefilter, and the fused
-branch ad/sd costs with the SGM potential and unit weights; the rest
-raises NotImplementedError naming the ROADMAP item that adds it.
+subpixel refinement on S); every other cost family takes the fused
+branch (`ops/fused.mgm_solve_fused`: costs in flight in K1 for every
+pass schedule of 1-16 directions at TSGM 1-4, SGM or FH, weighted or
+not, WTA and the subpixel taps in K2, and the knight passes of
+ndir > 8 through K8 and K6/K5/K7; refinement from the taps).  The port
+covers constant disparity windows and one iteration; per-pixel
+windows, TSGM_ITER and the energy audit raise NotImplementedError
+naming the ROADMAP item that adds them.
 """
 from __future__ import annotations
 
@@ -23,9 +25,11 @@ import torch
 
 from .config import MGMConfig
 from .ops import post
+from .ops.census import census_transform
 from .ops.cost import build_cost_volume
 from .ops.fused import mgm_solve_fused
-from .ops.refine import subpixel_refine
+from .ops.prefilter import apply_prefilter
+from .ops.refine import subpixel_refine, subpixel_refine_taps
 from .ops.weights import compute_weights
 from .solver import mgm_solve
 
@@ -44,11 +48,16 @@ def _unsupported(cfg: MGMConfig, per_pixel: bool) -> str | None:
         return "TSGM_ITER > 1: ROADMAP queue 1 item 6"
     if cfg.debug:
         return "TSGM_DEBUG energy audit: ROADMAP queue 1 item 6"
-    if cfg.refinement != "none" and not _dense(cfg):
-        return "subpixel refinement in the fused path: ROADMAP queue 1 item 5"
-    if cfg.prefilter != "none":
-        return "prefilters: ROADMAP queue 1 item 2"
     return None
+
+
+def _preprocess(img: torch.Tensor, cfg: MGMConfig) -> torch.Tensor:
+    """The census words (int32) when the prefilter is census, which
+    MGMConfig forces for the census distance; else the prefiltered
+    float32 image (mgm_tpu/stereo.py:38-43)."""
+    if cfg.prefilter == "census":
+        return census_transform(img, cfg.census_ncc_win // 2)
+    return apply_prefilter(img, cfg.prefilter)
 
 
 def _scrub(a: np.ndarray, device) -> torch.Tensor:
@@ -69,14 +78,14 @@ def _weights(imgs, cfg: MGMConfig):
     return w8 if bool((w8 != 1.0).any()) else None
 
 
-def _solve_dense(u_t, v_t, w8, cfg: MGMConfig, *, sides, L: int,
+def _solve_dense(u_p, v_p, w8, cfg: MGMConfig, *, sides, L: int,
                  p1: float, p2: float):
-    """NCC cost volumes + mgm_solve + refinement for each side (the JAX
-    _build_volumes, mgm_solve and _refine); returns (disp, cost), each
-    (N, H, W)."""
-    H, W, _ = u_t.shape
-    dev = u_t.device
-    imgs = ((u_t, v_t), (v_t, u_t))[:len(sides)]
+    """NCC cost volumes of the prefiltered images + mgm_solve +
+    refinement for each side (the JAX _build_volumes, mgm_solve and
+    _refine); returns (disp, cost), each (N, H, W)."""
+    H, W, _ = u_p.shape
+    dev = u_p.device
+    imgs = ((u_p, v_p), (v_p, u_p))[:len(sides)]
     lo = torch.stack([torch.full((H, W), s[1], dtype=torch.int32,
                                  device=dev) for s in sides])
     hi = torch.stack([torch.full((H, W), s[2], dtype=torch.int32,
@@ -126,18 +135,26 @@ def compute_disparity(u: np.ndarray, v: np.ndarray, cfg: MGMConfig, *,
 
     u_t = _scrub(u, device)
     v_t = _scrub(v, device)
+    # weights from the scrubbed, unfiltered images (stereo._prep_core)
     w8 = _weights((u_t, v_t)[:n_sides], cfg)
+    u_p, v_p = _preprocess(u_t, cfg), _preprocess(v_t, cfg)
     if _dense(cfg):
-        disp, cost = _solve_dense(u_t, v_t, w8, cfg, sides=sides, L=L,
+        disp, cost = _solve_dense(u_p, v_p, w8, cfg, sides=sides, L=L,
                                   p1=p1, p2=p2)
     else:
-        if w8 is not None:
-            raise NotImplementedError("adaptive weights in the fused "
-                                      "kernel: ROADMAP queue 1 item 5")
-        disp, cost = mgm_solve_fused(
-            u_t, v_t, sides=sides, L=L, ndir=cfg.ndir, mgm=cfg.mgm, p1=p1,
-            p2=p2, mode=cfg.distance, nch=C, trunc_dist=cfg.trunc_dist,
-            fix_overcount=cfg.fix_overcount, use_fh=cfg.use_trunc_linear)
+        refine = cfg.refinement != "none"
+        taps, disp, cost = mgm_solve_fused(
+            u_p, v_p, w8, sides=sides, L=L, ndir=cfg.ndir, mgm=cfg.mgm,
+            p1=p1, p2=p2, mode=cfg.distance, trunc_dist=cfg.trunc_dist,
+            fix_overcount=cfg.fix_overcount, use_fh=cfg.use_trunc_linear,
+            want_taps=refine)
+        if refine:
+            # every side's S window is the whole label axis
+            # (mgm_tpu/stereo.py:969-974)
+            gmin = torch.tensor([s[0] for s in sides], dtype=torch.int32)
+            disp, cost = subpixel_refine_taps(taps, disp, cost, 0, L - 1,
+                                              gmin, method=cfg.refinement)
+        del taps
 
     disp = post.median_filter(disp, radius=cfg.median_radius)
     disp_nolr = disp

@@ -3,13 +3,16 @@
 The scheduling must equal mgm_tpu's exactly.  The solve (the plain
 PyTorch versions of the kernels on CPU: K1 and K2, and for ndir > 8
 K8 and K6/K5/K7 on the knight passes) is held against
-mgm_tpu.solver.mgm_solve, the JAX package's dense XLA path.  The two
-sum in different orders (the fused path folds kappa*CC per space and
-sums the spaces A, B, V, PA, PB; docs/ARCHITECTURE.md
-"Numerical-parity policy"), so the rule of tests/test_fused.py
-applies: equal finite masks, costs within 3e-5 * scale, and
-disparities that differ only at argmin ties.  At TSGM = 1 every order
-is exact (min-plus over the integers of integer images): bitwise.
+mgm_tpu.solver.mgm_solve, the JAX package's dense XLA path, for every
+cost family in flight, the SGM and truncated-linear potentials, and
+edge weights.  The two sum in different orders (the fused path folds
+kappa*CC per space and sums the spaces A, B, V, PA, PB;
+docs/ARCHITECTURE.md "Numerical-parity policy"), so the rule of
+tests/test_fused.py applies: equal finite masks, costs within
+3e-5 * scale, and disparities that differ only at argmin ties.  At
+TSGM = 1 every order is exact (min-plus over integers and halves:
+integer images, census costs of two words, BT's half samples, integer
+P1): bitwise.  K2's subpixel taps equal mgm_tpu's taps_from_S bitwise.
 
 The kernels against their plain versions are in test_torch_kernels.py,
 which needs no JAX and so runs on a machine with a card.
@@ -21,6 +24,7 @@ import torch
 
 from mgm_tpu.ops import fused as jfused
 from mgm_tpu.ops.cost import build_cost_volume
+from mgm_tpu.ops.refine import taps_from_S as jtaps_from_S
 from mgm_tpu.solver import mgm_solve
 from mgm_tpu_torch.ops import fused as tfused
 
@@ -35,7 +39,8 @@ def test_split_passes_matches(ndir, mgm):
         assert tfused.fused_spec(p, mgm) == jfused.fused_spec(p, mgm)
 
 
-def _dense(u, v, sides, L, *, ndir, mgm, mode, trunc, fix, p1, p2):
+def _dense(u, v, sides, L, *, ndir, mgm, mode, trunc, fix, p1, p2, fh=False,
+           w8=None):
     N = len(sides)
     H, W = u.shape[:2]
     lefts, rights = [u, v][:N], [v, u][:N]
@@ -47,10 +52,30 @@ def _dense(u, v, sides, L, *, ndir, mgm, mode, trunc, fix, p1, p2):
                           trunc_dist=trunc, backend="xla")
         for n, (g, _, _) in enumerate(sides)])
     gmins = jnp.asarray([g for g, _, _ in sides], jnp.int32)
-    S, d, c = mgm_solve(cc, None, lo, hi, lo, hi, gmins, p1=p1, p2=p2,
-                        ndir=ndir, mgm=mgm, use_fh=False, use_weights=False,
+    S, d, c = mgm_solve(cc, None if w8 is None else jnp.asarray(w8), lo, hi,
+                        lo, hi, gmins, p1=p1, p2=p2, ndir=ndir, mgm=mgm,
+                        use_fh=fh, use_weights=w8 is not None,
                         per_pixel=False, fix_overcount=fix)
     return np.asarray(S), np.asarray(d), np.asarray(c)
+
+
+def _inputs(rng, mode, H, W, C, words=2):
+    """(JAX's images, the port's): float32 images, or for census
+    `words` random packed words a pixel (costs in halves or integers:
+    exact sums), uint32 for mgm_tpu and their int32 view for the
+    port."""
+    if mode != "census":
+        u, v = _pair(rng, H, W, C)
+        return (u, v), (u, v)
+    u, v = (rng.integers(0, 2**32, (H, W, words), dtype=np.uint64)
+            .astype(np.uint32) for _ in range(2))
+    return (u, v), (u.view(np.int32), v.view(np.int32))
+
+
+def _weights(rng, N, H, W):
+    """Edge weights of each side in {0.5, 1} (aP2 = 0.5)."""
+    return np.where(rng.random((N, H, W, 8)) < 0.5, 0.5, 1.0).astype(
+        np.float32)
 
 
 CASES = [
@@ -74,13 +99,25 @@ CASES = [
     dict(ndir=16, mgm=2, groups=(2, 0), left=8, D=3),
     dict(ndir=16, mgm=4, groups=(2, -1), left=8, D=3),
     dict(ndir=16, mgm=2, groups=(2, 0), left=8, D=3, mode="sd"),
+    # the in-flight census (2 words) and BT costs
+    dict(ndir=4, mgm=1, mode="census"), dict(ndir=4, mgm=1, mode="btad"),
+    dict(ndir=4, mgm=1, mode="btsd"),
+    # truncation at trunc_dist * (census words), not * (image channels)
+    dict(ndir=4, mgm=1, mode="census", trunc=3.0, words=1),
+    # the truncated-linear potential: TSGM 1, and cfg2's schedule
+    dict(ndir=4, mgm=1, fh=True),
+    dict(ndir=8, mgm=3, groups=(2, 0), D=3, fh=True, mode="census"),
+    # edge weights: SGM at TSGM 2 (no update_cost2 halving), and FH
+    dict(ndir=4, mgm=2, weights=True),
+    dict(ndir=4, mgm=2, weights=True, fh=True),
 ]
 
 
 @pytest.mark.parametrize("case", CASES,
                          ids=[str(sorted(c.items())) for c in CASES])
 def test_plain_solve_matches_dense(rng, case):
-    kw = dict(lr=True, mode="ad", trunc=float("inf"), fix=True)
+    kw = dict(lr=True, mode="ad", trunc=float("inf"), fix=True, fh=False,
+              weights=False)
     kw.update(case)
     ndir, mgm = kw["ndir"], kw["mgm"]
     # the schedule's group slopes, deepest front lag (D) and leftovers
@@ -93,15 +130,20 @@ def test_plain_solve_matches_dense(rng, case):
     assert len(leftover) == kw.get("left", 0)
 
     H, W, C, dmin, dmax = 18, 29, 2, -6, 4
-    u, v = _pair(rng, H, W, C)
+    (ju, jv), (u, v) = _inputs(rng, kw["mode"], H, W, C,
+                               kw.get("words", 2))
     L, sides = _sides(dmin, dmax, kw["lr"])
+    w8 = _weights(rng, len(sides), H, W) if kw["weights"] else None
     p1, p2 = 8.0 * C, 32.0 * C
-    S0, d0, c0 = _dense(u, v, sides, L, ndir=ndir, mgm=mgm, mode=kw["mode"],
-                        trunc=kw["trunc"], fix=kw["fix"], p1=p1, p2=p2)
-    d1, c1 = tfused.mgm_solve_fused(
-        torch.from_numpy(u), torch.from_numpy(v), sides=sides, L=L,
-        ndir=ndir, mgm=mgm, p1=p1, p2=p2, mode=kw["mode"], nch=C,
-        trunc_dist=kw["trunc"], fix_overcount=kw["fix"])
+    S0, d0, c0 = _dense(ju, jv, sides, L, ndir=ndir, mgm=mgm,
+                        mode=kw["mode"], trunc=kw["trunc"], fix=kw["fix"],
+                        p1=p1, p2=p2, fh=kw["fh"], w8=w8)
+    taps, d1, c1 = tfused.mgm_solve_fused(
+        torch.from_numpy(u), torch.from_numpy(v),
+        None if w8 is None else torch.from_numpy(w8), sides=sides, L=L,
+        ndir=ndir, mgm=mgm, p1=p1, p2=p2, mode=kw["mode"],
+        trunc_dist=kw["trunc"], fix_overcount=kw["fix"], use_fh=kw["fh"])
+    assert taps is None
     d1, c1 = d1.numpy(), c1.numpy()
     if mgm == 1:
         assert_bitwise(d1, d0)
@@ -119,16 +161,52 @@ def test_plain_solve_matches_dense(rng, case):
             f"non-tie disparity mismatch at {(n, y, x)}"
 
 
-@pytest.mark.parametrize("bad", [
-    dict(mode="btad"), dict(mode="btsd"), dict(batch=2),
-    dict(mode="census"), dict(use_fh=True),
-], ids=lambda c: str(sorted(c.items())))
+# (ndir, mgm, fh, mode): cfg2's schedule (A/B + V, census, FH) and
+# A + PB at TSGM 4
+TAP_CASES = [(8, 3, True, "census"), (4, 4, False, "ad")]
+
+
+@pytest.mark.parametrize("ndir,mgm,fh,mode", TAP_CASES)
+def test_taps_match_taps_from_S(rng, ndir, mgm, fh, mode):
+    """K2's taps (its plain version) equal mgm_tpu's taps_from_S on the
+    assembled S, bitwise: the same space sum in the same order, read at
+    the same clipped labels; disp and cost are those of the run
+    without taps."""
+    H, W, C = 18, 29, 2
+    _, (u, v) = _inputs(rng, mode, H, W, C)
+    L, sides = _sides(-6, 4, True)
+    kw = dict(sides=sides, L=L, ndir=ndir, mgm=mgm, p1=8.0 * C, p2=32.0 * C,
+              mode=mode, trunc_dist=float("inf"), fix_overcount=True,
+              use_fh=fh)
+    ut, vt = torch.from_numpy(u), torch.from_numpy(v)
+    taps, disp, cost = tfused.mgm_solve_fused(ut, vt, want_taps=True, **kw)
+    _, d2, c2 = tfused.mgm_solve_fused(ut, vt, **kw)
+    assert_bitwise(disp.numpy(), d2.numpy())
+    assert_bitwise(cost.numpy(), c2.numpy())
+    N = len(sides)
+    vol, nspaces = tfused.fused_planes(
+        torch.stack([ut, vt]), torch.stack([vt, ut]), sides=sides, L=L,
+        groups=tfused.split_passes(ndir, mgm)[0], mgm=mgm, p1=kw["p1"],
+        p2=kw["p2"], mode=mode, tmax=float("inf"), kappa=-float(ndir - 1),
+        use_fh=fh)
+    S, d3, _ = tfused.assemble_swta(
+        tfused.assemble_groups(vol, nspaces=nspaces, N=N), sides=sides,
+        L=L, fix_overcount=True)
+    assert_bitwise(d3.numpy(), disp.numpy())
+    gm = jnp.asarray([g for g, _, _ in sides], jnp.int32)
+    want = jtaps_from_S(jnp.asarray(S.numpy()), jnp.asarray(disp.numpy()), gm)
+    assert taps.shape == (N, H, 4, W)
+    assert_bitwise(taps.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("bad", [dict(batch=2)],
+                         ids=lambda c: str(sorted(c.items())))
 def test_unsupported_raise(bad):
     """What the port leaves out raises, naming the ROADMAP item."""
     bad = dict(bad)
     u = torch.zeros((bad.pop("batch"), 4, 5, 1) if "batch" in bad
                     else (4, 5, 1))
     kw = dict(sides=((-2, 0, 4),), L=5, ndir=4, mgm=2, p1=8.0, p2=32.0,
-              mode="ad", nch=1, trunc_dist=float("inf"), fix_overcount=True)
+              mode="ad", trunc_dist=float("inf"), fix_overcount=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfused.mgm_solve_fused(u, u, **{**kw, **bad})

@@ -55,21 +55,24 @@ def cuda():
 
 
 def _solve_planes(fn, u, v, *, ndir, mgm, sides, L, device, mode="ad",
-                  group=None):
+                  group=None, use_fh=False, w8=None, tmax=float("inf")):
     """Every launch of a solve's fused groups (or of its group number
-    `group` alone) through `fn` (the kernel or its plain version);
-    returns the volume and its space count."""
+    `group` alone) through `fn` (the kernel or its plain version) on
+    the images as K1 takes them; returns the volume and its space
+    count."""
     n = len(sides)
     lefts = torch.from_numpy(np.stack([u, v][:n])).to(device)
     rights = torch.from_numpy(np.stack([v, u][:n])).to(device)
-    C = u.shape[-1]
+    C = 3   # P1 and P2 of a three-channel image
     groups = tfused.split_passes(ndir, mgm)[0]
     if group is not None:
         groups = groups[group:group + 1]
     return tfused.fused_planes(lefts, rights, sides=sides, L=L,
                                groups=groups, mgm=mgm, p1=8.0 * C,
-                               p2=32.0 * C, mode=mode, tmax=float("inf"),
-                               kappa=-float(ndir - 1), wavefront=fn)
+                               p2=32.0 * C, mode=mode, tmax=tmax,
+                               kappa=-float(ndir - 1), use_fh=use_fh,
+                               w8=None if w8 is None else w8.to(device),
+                               wavefront=fn)
 
 
 # (slope, fstep, a0, ssgn): A and B at slopes 1 and 2, V, PA and PB
@@ -128,7 +131,7 @@ def test_library_is_keyed_by_the_sources():
     assert path.parent.parent == _build.BUILD_ROOT
     assert {s.name for s in _build._sources()} >= {
         "fused_wavefront.cu", "wta.cu", "wavefront.cu", "skew.cu",
-        "cost.cu", "mgm_kernels.h"}
+        "cost.cu", "mgm_kernels.h", "mgm_device.cuh"}
 
 
 @pytest.mark.cuda
@@ -183,6 +186,68 @@ def _bt_blocks(rng, H, W, C):
     return np.concatenate([i, lo, hi], -1)
 
 
+def _mode_images(rng, mode, H, W):
+    """A left and a right image as K1 and K8 take them for `mode`:
+    3 float32 channels, 2 random int32 census words, or BT's
+    [I, Imin, Imax] blocks of 3 channels."""
+    if mode == "census":
+        return tuple(rng.integers(0, 2**32, (H, W, 2), dtype=np.uint64)
+                     .astype(np.uint32).view(np.int32) for _ in range(2))
+    if mode in ("btad", "btsd"):
+        return _bt_blocks(rng, H, W, 3), _bt_blocks(rng, H, W, 3)
+    return _pair(rng, H, W, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [6, 151])
+@pytest.mark.parametrize("weights", [False, True])
+@pytest.mark.parametrize("use_fh", [False, True])
+@pytest.mark.parametrize("mode", cuda_cost.MODES)
+def test_kernels_match_plain_in_every_mode(cuda, mode, use_fh, weights, L):
+    """K1 for every cost family, SGM and FH, with and without edge
+    weights, at cfg2's schedule (ndir 8, TSGM 3: A/B at slope 2 and V),
+    then K2 with taps on its planes."""
+    rng = np.random.default_rng(L)
+    u, v = _mode_images(rng, mode, 17, 29)
+    L, sides = _sides(-L + 5, 4, True)
+    w8 = (torch.from_numpy(np.where(rng.random((2, 17, 29, 8)) < 0.5, 0.25,
+                                    1.0).astype(np.float32))
+          if weights else None)
+    kw = dict(ndir=8, mgm=3, sides=sides, L=L, device=cuda, mode=mode,
+              use_fh=use_fh, w8=w8, tmax=40.0)
+    got, ns = _solve_planes(cuda_fused.fused_wavefront, u, v, **kw)
+    want, _ = _solve_planes(cuda_fused.fused_wavefront_plain, u, v, **kw)
+    torch.cuda.synchronize()
+    assert_bitwise(got.cpu().numpy(), want.cpu().numpy())
+    n = cuda_fused.wta.launches
+    res = cuda_fused.wta(got, nspaces=ns, sides=sides, want_taps=True)
+    assert cuda_fused.wta.launches == n + 1
+    ref = cuda_fused.wta_plain(got, nspaces=ns, sides=sides, want_taps=True)
+    torch.cuda.synchronize()
+    assert res[2].shape == (2, 17, 4, 29)
+    for a, b in zip(res, ref):
+        assert_bitwise(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_wta_taps_keep_nan(cuda):
+    """K2's taps read the raw space sums: NaN and -inf sums come out as
+    they are (the TPU kernel's min over a one-hot select keeps NaN)."""
+    rng = np.random.default_rng(7)
+    vol = rng.uniform(0, 50, (4, 5, 9, 7)).astype(np.float32)
+    vol[0, 1, 2, :6] = np.nan     # the winner is label 6: NaN taps
+    vol[2, 3, 4, 2:] = -np.inf
+    vol[1, 0, 0] = np.inf          # an all-invalid window: idx 0
+    sides = ((0, 0, 6), (-3, 1, 5))
+    vt = torch.from_numpy(vol).to(cuda)
+    got = cuda_fused.wta(vt, nspaces=2, sides=sides, want_taps=True)
+    want = cuda_fused.wta_plain(vt, nspaces=2, sides=sides, want_taps=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert_bitwise(a.cpu().numpy(), b.cpu().numpy())
+    assert np.isnan(got[2].cpu().numpy()).any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", cuda_cost.MODES)
 @pytest.mark.parametrize("gmin,L", [(-7, 12), (-60, 151), (3, 5)])
@@ -216,6 +281,33 @@ def test_cfg1_pipeline_cuda_equals_cpu(cuda):
     # one forward and one backward launch; both sides are planes of each
     assert cuda_fused.fused_wavefront.launches == n1 + 2
     assert cuda_fused.wta.launches == n2 + 1
+    want = compute_disparity(u, v, cfg, device="cpu")
+    assert sorted(got) == sorted(want)
+    for k in got:
+        assert_bitwise(got[k], want[k])
+
+
+# preset -> (K1, K2, K8 launches) on the crop: two K1 groups (A/B and V,
+# or A/B and PA/PB) of two launches; full_16dir's knight passes through
+# K8 (one call a side) and K6/K5/K7, no K2
+PRESET_LAUNCHES = {"census_tl": (4, 1, 0), "sobelx_tl": (4, 1, 0),
+                   "satellite": (4, 1, 0), "bt": (4, 1, 0),
+                   "full_16dir": (4, 0, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PRESET_LAUNCHES))
+def test_presets_cuda_equal_cpu(cuda, name):
+    u, v, _ = synthetic_pair(24, 40, -8, 4, seed=3)
+    cfg = get_preset(name, dmin=-8, dmax=4, test_lr=True)
+    n = (cuda_fused.fused_wavefront.launches, cuda_fused.wta.launches,
+         cuda_cost.pointwise_volume.launches)
+    got = compute_disparity(u, v, cfg, device=cuda)
+    assert tuple(
+        a - b for a, b in zip((cuda_fused.fused_wavefront.launches,
+                               cuda_fused.wta.launches,
+                               cuda_cost.pointwise_volume.launches), n)
+    ) == PRESET_LAUNCHES[name]
     want = compute_disparity(u, v, cfg, device="cpu")
     assert sorted(got) == sorted(want)
     for k in got:

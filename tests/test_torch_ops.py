@@ -1,12 +1,17 @@
-"""Bitwise equality of the port's prep and post ops with mgm_tpu's."""
+"""Bitwise equality of the port's prep and post ops with mgm_tpu's
+(mgm_tpu's run eagerly here, op by op, as the port's do)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mgm_tpu.ops import census as jcensus
 from mgm_tpu.ops import post as jpost
+from mgm_tpu.ops import prefilter as jpre
 from mgm_tpu.ops.weights import compute_weights as j_weights
+from mgm_tpu_torch.ops import census as tcensus
 from mgm_tpu_torch.ops import post as tpost
+from mgm_tpu_torch.ops import prefilter as tpre
 from mgm_tpu_torch.ops.common import shift_edge, shift_fill
 from mgm_tpu_torch.ops.weights import compute_weights as t_weights
 
@@ -78,3 +83,47 @@ def test_backflow(rng):
                          torch.from_numpy(u)).numpy()
     want = jpost.backflow(jnp.asarray(disp), jnp.asarray(v), jnp.asarray(u))
     assert_bitwise(got, want)
+
+
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("win", [3, 5])
+def test_census_transform(rng, C, win):
+    """int32 words with the bits of mgm_tpu's uint32 words; NaN centres
+    and neighbours (and the image border) give 0 bits."""
+    img = _with_nans(rng, rng.integers(0, 6, (9, 11, C)).astype(np.float32),
+                     0.1)
+    got = tcensus.census_transform(torch.from_numpy(img), win // 2).numpy()
+    want = np.asarray(jcensus.census_transform(jnp.asarray(img), win // 2))
+    nwords = tcensus.census_words(C, win // 2)
+    assert nwords == jcensus.census_words(C, win // 2)
+    assert got.dtype == np.int32 and got.shape == (9, 11, nwords)
+    np.testing.assert_array_equal(got.view(np.uint32), want)
+
+
+@pytest.mark.parametrize("name", ["none", "sobelx", "gblur", "sobel_x"])
+def test_apply_prefilter(rng, name):
+    img = rng.uniform(0, 255, (9, 13, 3)).astype(np.float32)
+    got = tpre.apply_prefilter(torch.from_numpy(img), name).numpy()
+    assert_bitwise(got, jpre.apply_prefilter(jnp.asarray(img), name))
+
+
+@pytest.mark.parametrize("sigma", [0.4, 1.0, 2.5])
+def test_gblur(rng, sigma):
+    for s in (sigma, -sigma, 7.0):   # 7.0: the width clamps at 39
+        np.testing.assert_array_equal(tpre.gblur_kernel(s),
+                                      jpre.gblur_kernel(s))
+    img = rng.uniform(0, 255, (9, 13, 2)).astype(np.float32)
+    assert_bitwise(tpre.gblur(torch.from_numpy(img), sigma).numpy(),
+                   jpre.gblur(jnp.asarray(img), sigma))
+
+
+def test_correlate2d_scan_order(rng):
+    """A 3x5 kernel with a zero tap, clamp-to-edge, taps summed in
+    (row, col) order."""
+    k = rng.normal(size=(3, 5)).astype(np.float32)
+    k[1, 2] = 0.0
+    img = rng.normal(size=(7, 6, 2)).astype(np.float32)
+    assert_bitwise(tpre.correlate2d(torch.from_numpy(img), k).numpy(),
+                   jpre.correlate2d(jnp.asarray(img), k))
+    assert_bitwise(tpre.sobelx(torch.from_numpy(img)).numpy(),
+                   jpre.sobelx(jnp.asarray(img)))
