@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time goes on one GPU: the port's seven full-width runs.
+"""Where the time goes on one GPU: the port's ten full-width runs.
 
     python3 chip_profile.py [--reps N] [--out DIR] [--rows NAME ...]
+                            [--repo DIR]
 
 Run from a checkout on a machine with one CUDA card (it builds the
 kernels like chip_smoke.py and imports no JAX).  The runs, on seeded
@@ -18,7 +19,13 @@ synthetic data at 700x500, L = 151:
               median);
   ncc         compute_disparity with the `ncc` preset, LR (dense
               K6/K5/K7);
-  mgm_o       mrf_cli.main on a protocol file, NDIR 8, MGM 2, VTYPE 0.
+  mgm_o       mrf_cli.main on a protocol file, NDIR 8, MGM 2, VTYPE 0;
+  cfg1_mM     cfg1 with full-band constant -m/-M images (per-pixel
+              windows in K1, the materialised S assembly instead of K2);
+  cfg3_b8     compute_disparity_batch on 8 synthetic satellite pairs
+              (279x271x1, the satellite preset over -22..19, LR);
+  cfg3_scene  runner.tiled_disparity(tile=512, margin=64, batch=5) on an
+              8x8 mosaic of one satellite pair (2232x2168).
 For each run it prints
   - the host wall time, median of N plain runs;
   - host stage times: the run's stage functions are wrapped with a
@@ -28,7 +35,9 @@ For each run it prints
     union of kernel and copy intervals over the host wall) and device
     time by kernel name.
 With --out DIR the full tables also go to DIR/profile.json; --rows
-names the runs to make (default: all).
+names the runs to make (default: all); --repo DIR profiles the
+mgm_tpu_torch package of another checkout (e.g. the parent commit, to
+compare two versions with one script; its kernels build there).
 """
 from __future__ import annotations
 
@@ -40,9 +49,12 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
-from chip_smoke import (DMAX, DMIN, H, L, W, _device_line,  # noqa: E402
+from chip_smoke import (DMAX, DMIN, H, L, SAT_DMAX, SAT_DMIN,  # noqa: E402
+                        SAT_H, SAT_W, W, _device_line, _satellite_pairs,
                         _walls)
 
 
@@ -124,14 +136,17 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", help="directory for profile.json")
     ap.add_argument("--rows", nargs="+", help="run only these rows")
+    ap.add_argument("--repo", help="checkout whose mgm_tpu_torch to profile")
     args = ap.parse_args(argv)
+    if args.repo:
+        sys.path.insert(0, os.path.abspath(args.repo))
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
-    from mgm_tpu_torch import MGMConfig, mrf, mrf_cli, solver, stereo
+    from mgm_tpu_torch import MGMConfig, mrf, mrf_cli, runner, solver, stereo
     from mgm_tpu_torch.ops import post
     from mgm_tpu_torch.models import get_preset
     from mgm_tpu_torch.ops import _build, cuda_fused, fused
@@ -141,6 +156,7 @@ def main(argv=None) -> int:
 
     _build.build()
     card = _device_line()     # the card's name and power limit
+    print(f"profiling {_build.PKG} on {card}")
     u, v, _ = synthetic_pair(H, W, DMIN, DMAX, seed=0)
     cfg1 = MGMConfig(dmin=DMIN, dmax=DMAX, ndir=4, mgm=2, distance="ad",
                      p1=8, p2=32, test_lr=True)
@@ -149,6 +165,14 @@ def main(argv=None) -> int:
     ncc = get_preset("ncc", dmin=DMIN, dmax=DMAX)
     cfg2, cfg4 = (get_preset(n, dmin=DMIN, dmax=DMAX, test_lr=True)
                   for n in ("census_tl", "sobelx_tl"))
+    sat = get_preset("satellite", test_lr=True)
+    L_sat = SAT_DMAX - SAT_DMIN + 1
+    us8, vs8, _ = _satellite_pairs(8)
+    su, sv, _ = _satellite_pairs(1, seed0=100)
+    su, sv = (np.ascontiguousarray(np.tile(a[0], (8, 8, 1)))
+              for a in (su, sv))
+    win = dict(dmin_img=np.full((H, W), DMIN, np.float32),
+               dmax_img=np.full((H, W), DMAX, np.float32))
     tmp = tempfile.TemporaryDirectory()
     f_in = os.path.join(tmp.name, "input.bin")
     f_out = os.path.join(tmp.name, "labeling.bin")
@@ -199,6 +223,35 @@ def main(argv=None) -> int:
           (stereo, "mgm_solve", "mgm_solve"),
           (solver, "aggregate", " aggregate")] + dense
          + [(stereo, "subpixel_refine", "refine")]),
+        ("cfg1_mM", lambda: stereo.compute_disparity(u, v, cfg1,
+                                                     device="cuda", **win),
+         2 * H * W * L,
+         [(stereo, "_scrub", "upload + scrub"),
+          (stereo, "mgm_solve_fused", "fused solve"),
+          (cuda_fused, "fused_wavefront", "  K1 fused wavefront"),
+          (fused, "assemble_groups", "  space sum"),
+          (fused, "assemble_swta", "  S assembly + WTA")]),
+        ("cfg3_b8", lambda: stereo.compute_disparity_batch(
+            us8, vs8, sat, device="cuda"), 8 * 2 * SAT_H * SAT_W * L_sat,
+         [(stereo, "_scrub", "upload + scrub"),
+          (stereo, "_preprocess", "census"),
+          (stereo, "mgm_solve_fused", "fused solve"),
+          (cuda_fused, "fused_wavefront", "  K1 fused wavefront"),
+          (cuda_fused, "wta", "  K2 wta + taps"),
+          (stereo, "subpixel_refine_taps", "refine"),
+          (post, "median_filter", "median"),
+          (stereo, "_leftright", "LR check")]),
+        ("cfg3_scene", lambda: runner.tiled_disparity(
+            su, sv, sat, tile=512, margin=64, batch=5),
+         2 * su.shape[0] * su.shape[1] * L_sat,
+         [(runner, "compute_disparity_batch", "batched solves"),
+          (stereo, "_scrub", " upload + scrub"),
+          (stereo, "_preprocess", " census"),
+          (stereo, "mgm_solve_fused", " fused solve"),
+          (cuda_fused, "fused_wavefront", "  K1 fused wavefront"),
+          (cuda_fused, "wta", "  K2 wta + taps"),
+          (post, "median_filter", " median"),
+          (stereo, "_leftright", " LR check")]),
         ("mgm_o", lambda: mrf_cli.main([f_in, f_out, "8", "32", "2", "0"]),
          H * W * L,
          [(mrf_cli, "read_problem", "read protocol file"),
@@ -242,6 +295,10 @@ def main(argv=None) -> int:
                 print(f"   {k:<28} {st.ms[k]:9.3f} ms")
         print(f"   {'rest (host, post, fetch)':<28} "
               f"{staged - top_level:9.3f} ms")
+        k1 = sum(ms for k, (ms, _) in by_name.items() if "front_kernel" in k)
+        report["runs"][name]["k1_front_kernels_ms"] = k1 / args.reps
+        print(f"   K1's front kernels: {k1 / args.reps:.3f} ms of device time "
+              f"a run")
         print(f"   profiler: device busy {busy:.4f} of the host wall "
               f"({pwall / args.reps:.3f} ms a run profiled), device window "
               f"{window / args.reps:.3f} ms a run")

@@ -75,7 +75,34 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     (a surviving pixel's cost may be NaN only where the fit divides 0
     by 0, at most 1 %);
 18. the `satellite`, `bt` and `full_16dir` presets on the crop: CUDA
-    equal to CPU for every output.
+    equal to CPU for every output;
+19. K1 under per-pixel label windows (-m/-M) against its plain version
+    on a 64-row strip, 700 wide, L = 151, both LR sides, windows the
+    truth +- 6 clipped to the range with some one label wide and some
+    empty: fast_ad at TSGM 2, census_tl (FH restricted to the target's
+    window), FH at TSGM 2 unweighted (unrestricted) and weighted FH
+    (restricted): bitwise equal;
+20. cfg1_mM (bench_matrix's row: cfg1 with -m/-M images) end to end as
+    phase 4, with the full-band constant images and with the truth +- 8:
+    K1 only (the materialised S assembly, no K2); then K1's time per
+    front at cfg1's full shape under per-pixel and constant windows,
+    and K1 against its plain version at that shape under the truth +- 8
+    windows: bitwise equal;
+21. TSGM_ITER = 3 at cfg1 and with the ncc preset end to end as phase
+    4 (the label axis widened by 16); TSGM_DEBUG on the crop: the
+    energies of the CUDA and the CPU runs within 1e-6 relative;
+22. cfg3_b8 and cfg3_b32: 8 and 32 synthetic satellite pairs (279x271x1,
+    the `satellite` preset over -22..19, LR) through
+    compute_disparity_batch: every pair's outputs bitwise equal to its
+    own compute_disparity on the card, the launches one pair's, the
+    median wall beside the sequential loop's; K1 and K2 (+ taps) against
+    their plain versions on cfg3_b8's batch (K1's pair axis, K2's batch
+    table): bitwise equal; then K1's time per front at K = 8 against
+    K = 1;
+23. cfg3_scene: an 8x8 mosaic of one synthetic satellite pair
+    (2232x2168) through runner.tiled_disparity(tile=512, margin=64,
+    batch=5): 25 tiles, bitwise equal to batch=1, the median wall in
+    MP*disp/s of scene work (2*H*W*L).
 
 With --data DIR holding fountain23-imL.png and fountain23-imR.png
 (default: the repository's data/), cfg1 also runs on that pair.  The
@@ -84,9 +111,11 @@ power limit, and {"ok": true, "device": {...}}; a failure exits
 non-zero before them.  A kernel's `launches` counts its wrapper's
 calls on the main paths, each path's counts zeroed just before its run
 and read just after (`launches_by_path`): cfg1 (phase 4), cfg1_tsgm4
-(phase 13), cfg2 and cfg4 (phase 17) for K1/K2, the two mgm_o runs and
-the NCC run (phases 7-8) for K5/K6/K7, full_16dir (phase 12) for K1,
-K5-K8; `launches` is their sum.  One K1 or K5 call launches one small
+(phase 13), cfg2 and cfg4 (phase 17), cfg1_iter3 (phase 21), cfg3_b8,
+cfg3_b32 (phase 22) and cfg3_scene (phase 23) for K1/K2, cfg1_mM and
+cfg1_mM_truth8 (phase 20) for K1, the two mgm_o runs, the NCC run
+(phases 7-8) and ncc_iter3 (phase 21) for K5/K6/K7, full_16dir (phase
+12) for K1, K5-K8; `launches` is their sum.  One K1 or K5 call launches one small
 kernel per wavefront.  K1's and K2's times and bounds are cfg2's
 (phase 15).  `bound_ms` is the larger of the bytes the call must move
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100
@@ -129,6 +158,9 @@ DENSE_CASES = (
 DENSE_KERNELS = ("wavefront_scan", "skew", "unskew")
 FUSED_KERNELS = ("fused_wavefront", "wta")
 CENSUS_WORDS = 2                 # phase 11's packed census words a pixel
+NEW_REPS = 3                     # timed runs of phases 20-23
+# cfg3 (the satellite preset): 279x271x1 pairs, disparities -22..19
+SAT_H, SAT_W, SAT_DMIN, SAT_DMAX = 271, 279, -22, 19
 
 
 def _device_line() -> str:
@@ -188,7 +220,8 @@ def _k1_inputs(cfg, u, v):
     u_t, v_t = (stereo._scrub(a, "cuda") for a in (u, v))
     w8 = stereo._weights((u_t, v_t), cfg)
     u_p, v_p = (stereo._preprocess(a, cfg) for a in (u_t, v_t))
-    lefts, rights = fused.side_images(u_p, v_p, N=2, mode=cfg.distance)
+    lefts, rights = fused.side_images(u_p[None], v_p[None], nsides=2,
+                                      mode=cfg.distance)
     return dict(lefts=lefts, rights=rights, w8=w8, L=L_, mgm=cfg.mgm,
                 sides=((cfg.dmin, 0, L_ - 1), (-cfg.dmax, 0, L_ - 1)),
                 p1=cfg.p1 * C, p2=cfg.p2 * C, mode=cfg.distance,
@@ -199,8 +232,9 @@ def _k1_inputs(cfg, u, v):
 def _planes(fn, cfg, inp, group=None):
     """Every K1 launch of cfg's fused groups (or of group number `group`
     alone) through `fn` (K1 or its plain version) on _k1_inputs'
-    `inp`, with the solve's own overcount fold (none when it has
-    leftover passes); returns (volume, nspaces)."""
+    `inp` (with lo_px/hi_px/fh_restrict and npair where it has them),
+    with the solve's own overcount fold (none when it has leftover
+    passes); returns (volume, nspaces)."""
     from mgm_tpu_torch.ops import fused
 
     groups, leftover = fused.split_passes(cfg.ndir, cfg.mgm)
@@ -230,8 +264,9 @@ def _k1_bound(cfg, inp, nspaces):
     L_, mgm = inp["L"], cfg.mgm
     cells = N * R * C * L_
     nbytes = 3 * nspaces * cells * 4 + 2 * inp["lefts"].numel() * 4
-    if inp["w8"] is not None:
-        nbytes += inp["w8"].numel() * 4
+    for k in ("w8", "lo_px", "hi_px"):   # the per-pixel windows: int32
+        if inp.get(k) is not None:
+            nbytes += inp[k].numel() * 4
     npass = cfg.ndir - len(fused.split_passes(cfg.ndir, mgm)[1])
     ops = (npass * cells * (mgm * 6 + mgm + 1)
            + nspaces * cells * (3 * nch + 2))
@@ -333,14 +368,16 @@ def _zero(names):
         _kernels()[n].launches = 0
 
 
-def _crop_check(phase, tag, cfg, u, v):
+def _crop_check(phase, tag, cfg, u, v, win=None):
     """compute_disparity on CROP: every output of the CUDA run bitwise
-    equal to the CPU run's (the plain versions of the kernels)."""
+    equal to the CPU run's (the plain versions of the kernels); `win`:
+    the run's (H, W) -m/-M windows, cropped alike."""
     import torch
     from mgm_tpu_torch import compute_disparity
 
-    small_gpu = compute_disparity(u[CROP], v[CROP], cfg, device="cuda")
-    small_cpu = compute_disparity(u[CROP], v[CROP], cfg, device="cpu")
+    kw = {k: a[CROP] for k, a in (win or {}).items()}
+    small_gpu = compute_disparity(u[CROP], v[CROP], cfg, device="cuda", **kw)
+    small_cpu = compute_disparity(u[CROP], v[CROP], cfg, device="cpu", **kw)
     for k in small_cpu:
         _compare(f"{tag} crop {k}", torch.from_numpy(small_gpu[k]),
                  torch.from_numpy(small_cpu[k]))
@@ -348,27 +385,32 @@ def _crop_check(phase, tag, cfg, u, v):
           f"CPU plain for every output ({TOL})", flush=True)
 
 
-def _stereo_path(phase, tag, cfg, pair, names, card, reps, tol=0.0):
+def _stereo_path(phase, tag, cfg, pair, names, card, reps, tol=0.0,
+                 win=None, absent=(), L_=None):
     """One stereo row end to end at full width: the kernels `names`
     counted over one compute_disparity(device="cuda") run (each must
-    launch), shapes, finite costs, the recovery thresholds (>= 0.70 LR
-    survivors, >= 0.95 of them within `tol` px of the truth: 0 for the
-    integer rows, 0.5 px for the refined ones), peak device memory, a
-    crop equal to its CPU run, and the median wall of `reps` runs.
-    Returns the launch counts."""
+    launch, each of `absent` must not), shapes, finite costs, the
+    recovery thresholds (>= 0.70 LR survivors, >= 0.95 of them within
+    `tol` px of the truth: 0 for the integer rows, 0.5 px for the
+    refined ones), peak device memory, a crop equal to its CPU run, and
+    the median wall of `reps` runs in MP*disp/s over L_ labels (default
+    dmin..dmax).  `win`: -m/-M windows (dmin_img, dmax_img).  Returns
+    the launch counts."""
     import torch
     from mgm_tpu_torch import compute_disparity
 
     u, v, d_true = pair
     H_, W_ = u.shape[:2]
-    L_ = cfg.dmax - cfg.dmin + 1
-    _zero(names)
+    L_ = L_ or cfg.dmax - cfg.dmin + 1
+    win = win or {}
+    _zero(names + tuple(absent))
     torch.cuda.reset_peak_memory_stats()
-    out = compute_disparity(u, v, cfg, device="cuda")
+    out = compute_disparity(u, v, cfg, device="cuda", **win)
     got = _counts(names)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if min(got.values()) < 1:
-        raise AssertionError(f"{tag} bypassed a kernel: {got}")
+    if min(got.values()) < 1 or any(_counts(absent).values()):
+        raise AssertionError(f"{tag} bypassed a kernel or launched one "
+                             f"off its path: {got}, {_counts(absent)}")
     disp = out["disp"]
     if disp.shape != (H_, W_) or out["cost"].shape != (H_, W_):
         raise AssertionError(f"{tag} output shapes {disp.shape}")
@@ -392,9 +434,10 @@ def _stereo_path(phase, tag, cfg, pair, names, card, reps, tol=0.0):
           flush=True)
     if survive < 0.70 or correct < 0.95:
         raise AssertionError(f"{tag} recovery below threshold")
-    _crop_check(phase, tag, cfg, u, v)
+    _crop_check(phase, tag, cfg, u, v, win)
     walls = _walls(lambda: compute_disparity(u, v, cfg, device="cuda",
-                                             outputs=("disp", "cost")), reps)
+                                             outputs=("disp", "cost"), **win),
+                   reps)
     med = statistics.median(walls)
     print(f"[{phase}] {tag} wall s per run: {walls}; median {med:.4f} s = "
           f"{2 * H_ * W_ * L_ / med / 1e6:.1f} MP*disp/s on {card}",
@@ -534,6 +577,108 @@ def _fused_timing(phase, tag, cfg, u, v, errs, card):
     return ms, plain_ms, library_ms, bounds
 
 
+def _index_windows(d_true, cfg, rng):
+    """(N=2, R, C) int32 per-pixel label windows of both LR sides for a
+    K1 check: the true disparity +- 6 clipped to the range (the right
+    side's truth is the negated left one's), some one label wide, some
+    empty after truncation (hi = lo - 1)."""
+    import torch
+
+    L_ = cfg.dmax - cfg.dmin + 1
+    los, his = [], []
+    for d, g in ((d_true, cfg.dmin), (-d_true, -cfg.dmax)):
+        lo = np.clip(d - 6 - g, 0, L_ - 1)
+        hi = np.clip(d + 6 - g, 0, L_ - 1)
+        one = rng.random(d.shape) < 0.05
+        hi = np.where(one, lo, hi)
+        empty = rng.random(d.shape) < 0.02
+        hi = np.where(empty, lo - 1, hi)
+        los.append(lo)
+        his.append(hi)
+    return (torch.from_numpy(np.stack(los).astype(np.int32)).cuda(),
+            torch.from_numpy(np.stack(his).astype(np.int32)).cuda())
+
+
+def _pp_check(phase, cases, errs, strip, rng):
+    """K1 under per-pixel windows against its plain version, bitwise, on
+    the strip (u, v, truth), both LR sides, for each (label, cfg) case
+    with the fh_restrict rule of ops/fused.mgm_solve_fused."""
+    import torch
+    from mgm_tpu_torch.ops import cuda_fused
+
+    u, v, d = strip
+    for label, cfg in cases:
+        inp = _k1_inputs(cfg, u, v)
+        lo, hi = _index_windows(d, cfg, rng)
+        restrict = (cfg.use_trunc_linear
+                    and not (cfg.mgm == 2 and inp["w8"] is None))
+        inp.update(lo_px=lo, hi_px=hi, fh_restrict=restrict)
+        got, _ = _planes(cuda_fused.fused_wavefront, cfg, inp)
+        t, (want, _) = _event_once(lambda: _planes(
+            cuda_fused.fused_wavefront_plain, cfg, inp))
+        e1 = _compare(f"K1 per-pixel {label}", got, want)
+        errs["fused_wavefront"] = max(errs["fused_wavefront"], e1)
+        print(f"[{phase}] K1 == plain under per-pixel windows at "
+              f"{u.shape[0]}x{u.shape[1]}x3, L={inp['L']}, {label}: ndir "
+              f"{cfg.ndir} TSGM {cfg.mgm}, {cfg.distance}, "
+              f"{'FH' if cfg.use_trunc_linear else 'SGM'}, weights "
+              f"{'on' if inp['w8'] is not None else 'off'}, fh_restrict "
+              f"{restrict} (windows truth +- 6, "
+              f"{float((hi - lo == 0).float().mean()):.3f} one label, "
+              f"{float((hi < lo).float().mean()):.3f} empty): {TOL}, max abs "
+              f"err {e1}, plain {t:.1f} ms", flush=True)
+        del got, want
+
+
+def _satellite_pairs(K, seed0=0):
+    """K synthetic pairs at the satellite geometry (279x271, one
+    channel, disparities -22..19), each from its own seed:
+    (us, vs, truths), stacked."""
+    from mgm_tpu_torch.synthetic import synthetic_pair
+
+    ps = [synthetic_pair(SAT_H, SAT_W, SAT_DMIN, SAT_DMAX, seed=seed0 + k)
+          for k in range(K)]
+    return (np.stack([p[0][..., :1] for p in ps]),
+            np.stack([p[1][..., :1] for p in ps]),
+            np.stack([p[2] for p in ps]))
+
+
+def _batch_k1_inputs(cfg, us, vs, K):
+    """What compute_disparity_batch(us[:K], vs[:K], cfg) hands K1 and K2
+    (constant windows, LR): the stacked side images and fused_planes'
+    keywords (the pair axis, npair = K)."""
+    import torch
+    from mgm_tpu_torch import stereo
+    from mgm_tpu_torch.ops import fused
+
+    u_t, v_t = (stereo._scrub(a[:K], "cuda") for a in (us, vs))
+    w8 = stereo._weights([img for k in range(K) for img in (u_t[k], v_t[k])],
+                         cfg)
+    ups, vps = (torch.stack([stereo._preprocess(a, cfg) for a in t])
+                for t in (u_t, v_t))
+    lefts, rights = fused.side_images(ups, vps, nsides=2, mode=cfg.distance)
+    L_ = cfg.dmax - cfg.dmin + 1
+    groups, leftover = fused.split_passes(cfg.ndir, cfg.mgm)
+    C = us.shape[-1]
+    kw = dict(sides=((cfg.dmin, 0, L_ - 1), (-cfg.dmax, 0, L_ - 1)), L=L_,
+              groups=groups, mgm=cfg.mgm, p1=cfg.p1 * C, p2=cfg.p2 * C,
+              mode=cfg.distance, tmax=cfg.trunc_dist * ups.shape[-1],
+              kappa=0.0 if leftover else -float(cfg.ndir - 1),
+              use_fh=cfg.use_trunc_linear, w8=w8, npair=K)
+    return lefts, rights, kw
+
+
+def _fronts(groups, R, C):
+    """Front kernels of one K1 pass over the groups at R x C."""
+    from mgm_tpu_torch.ops import fused
+
+    n = 0
+    for gslope, _, launches in groups:
+        slope, fstep = (1, 2) if gslope == fused.P_SLOPE else (gslope, 1)
+        n += len(launches) * (fstep * (C - 1) + slope * (R - 1) + 1)
+    return n
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--data", default=os.path.join(REPO, "data"),
@@ -546,8 +691,10 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from mgm_tpu_torch import compute_disparity, mrf_cli
+    from mgm_tpu_torch import compute_disparity, mrf_cli, stereo
     from mgm_tpu_torch.models import get_preset
+    from mgm_tpu_torch.runner import tiled_disparity
+    from mgm_tpu_torch.stereo import compute_disparity_batch
     from mgm_tpu_torch.mrf import solve_mrf
     from mgm_tpu_torch.ops import _build, cuda_cost, cuda_fused, fused
     from mgm_tpu_torch.ops import aggregate as agg
@@ -898,8 +1045,236 @@ def main(argv=None) -> int:
         _crop_check("18", f"{name} preset", get_preset(
             name, dmin=DMIN, dmax=DMAX, test_lr=True), u, v)
 
+    # ---- 19. K1 under per-pixel windows against its plain version --
+    rng = np.random.default_rng(19)
+    pp_strip = synthetic_pair(STRIP, W, DMIN, DMAX, seed=19)
+    _pp_check("19", (
+        ("fast_ad TSGM 2", _fast_ad()),
+        ("census_tl", get_preset("census_tl", dmin=DMIN, dmax=DMAX,
+                                 test_lr=True)),
+        ("FH TSGM 2 unweighted", _fast_ad(use_trunc_linear=True)),
+        ("weighted FH TSGM 2 (aP2 0.5)",
+         _fast_ad(use_trunc_linear=True, a_p2=0.5))), errs, pp_strip, rng)
+    del pp_strip
+    torch.cuda.empty_cache()
+
+    # ---- 20. cfg1_mM: per-pixel -m/-M windows end to end --------------
+    # bench_matrix's row builds full-band constant images; the second
+    # run takes the truth +- 8, clipped to the range (L stays 151)
+    wins = {"cfg1_mM": (np.full((H, W), DMIN, np.float32),
+                        np.full((H, W), DMAX, np.float32)),
+            "cfg1_mM_truth8": tuple(np.clip(d_true + s, DMIN, DMAX).astype(
+                np.float32) for s in (-8, 8))}
+    for tag, (lo_img, hi_img) in wins.items():
+        got = _stereo_path("20", tag, cfg, pair, ("fused_wavefront",), card,
+                           NEW_REPS, win=dict(dmin_img=lo_img,
+                                              dmax_img=hi_img),
+                           absent=("wta",))
+        by_path["fused_wavefront"][tag] = got["fused_wavefront"]
+    # K1 at cfg1_mM's full shape: a front under per-pixel windows
+    inp = _k1_inputs(cfg, u, v)
+    full_lo = torch.zeros((2, H, W), dtype=torch.int32, device=dev)
+    inp.update(lo_px=full_lo, hi_px=full_lo + (L - 1))
+    groups = fused.split_passes(cfg.ndir, cfg.mgm)[0]
+    fronts = sum(len(g[2]) * (W + g[0] * (H - 1)) for g in groups)
+    k1_mm = _event_ms(lambda: _planes(cuda_fused.fused_wavefront, cfg, inp),
+                      3)
+    mm_bound = _k1_bound(cfg, inp, 2)
+    del inp["lo_px"], inp["hi_px"]
+    k1_c = _event_ms(lambda: _planes(cuda_fused.fused_wavefront, cfg, inp),
+                     3)
+    del inp, full_lo
+    print(f"[20] K1 at cfg1's full shape ({H}x{W}, L={L}, {fronts} front "
+          f"kernels): per-pixel windows {k1_mm:.3f} ms = "
+          f"{k1_mm / fronts * 1e3:.3f} us a front, constant windows "
+          f"{k1_c:.3f} ms = {k1_c / fronts * 1e3:.3f} us a front; bound "
+          f"with the windows read {mm_bound[0]:.3f} ms ({mm_bound[1]}) on "
+          f"{card}", flush=True)
+    # K1 against its plain version at cfg1_mM's full shape, under the
+    # truth +- 8 windows as compute_disparity hands them to K1
+    flo, fhi = stereo._pixel_windows(*wins["cfg1_mM_truth8"], cfg, H, W,
+                                     "cuda")
+    g_l = int(flo.to(torch.int32).min())
+    L_mm = max(int(fhi.to(torch.int32).max()) - g_l, DMAX - DMIN) + 1
+    lo_px, hi_px, _, _ = stereo._pp_expand(
+        flo, fhi, n_sides=2, gmin_l=g_l, gmin_r=-DMAX, dmin=DMIN, dmax=DMAX)
+    inp = _k1_inputs(cfg, u, v)
+    inp.update(L=L_mm, sides=((g_l, 0, L_mm - 1), (-DMAX, 0, L_mm - 1)),
+               lo_px=lo_px, hi_px=hi_px)
+    got, _ = _planes(cuda_fused.fused_wavefront, cfg, inp)
+    t, (want, _) = _event_once(lambda: _planes(
+        cuda_fused.fused_wavefront_plain, cfg, inp))
+    e1 = _compare("K1 cfg1_mM_truth8 full shape", got, want)
+    errs["fused_wavefront"] = max(errs["fused_wavefront"], e1)
+    print(f"[20] K1 == plain at cfg1_mM_truth8's full shape ({H}x{W}, "
+          f"L={L_mm}, both LR sides, left windows truth +- 8, "
+          f"{float((hi_px[0] - lo_px[0] < L_mm - 1).float().mean()):.3f} of "
+          f"them narrower than the axis): {TOL}, max abs err {e1}, plain "
+          f"{t:.1f} ms", flush=True)
+    del inp, got, want, flo, fhi, lo_px, hi_px
+    torch.cuda.empty_cache()
+
+    # ---- 21. TSGM_ITER = 3 (cfg1, ncc) and TSGM_DEBUG -----------------
+    # the label axis grows by 4 * (iterations - 1) on each side
+    L_it = L + 2 * 4 * 2
+    rows = {"cfg1_iter3": (_fast_ad(iterations=3), FUSED_KERNELS, 0.0),
+            "ncc_iter3": (ncc.replace(iterations=3), DENSE_KERNELS, 0.5)}
+    for tag, (rcfg, names, tol) in rows.items():
+        got = _stereo_path("21", tag, rcfg, pair, names, card, NEW_REPS,
+                           tol=tol, L_=L_it)
+        for n in got:
+            by_path[n][tag] = got[n]
+        torch.cuda.empty_cache()
+    import contextlib
+    import io
+    with tempfile.TemporaryDirectory() as tmp:
+        old_tmp, tempfile.tempdir = tempfile.tempdir, tmp
+        try:
+            energies = {}
+            for device in ("cuda", "cpu"):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    compute_disparity(u[CROP], v[CROP], _fast_ad(
+                        iterations=3, debug=True), device=device)
+                energies[device] = np.array(
+                    [[float(x.split()[-1]) for x in ln.split("\t")]
+                     for ln in buf.getvalue().splitlines() if "ENERGY" in ln])
+            dump = os.path.join(tmp, "ENERGY_L1trunc.tif")
+            # a float32 TIFF of the crop: at least its pixels' bytes
+            if not (os.path.exists(dump) and os.path.getsize(dump)
+                    >= u[CROP].shape[0] * u[CROP].shape[1] * 4):
+                raise AssertionError("TSGM_DEBUG wrote no energy image")
+        finally:
+            tempfile.tempdir = old_tmp
+    ec, ep = energies["cuda"], energies["cpu"]
+    rel = float(np.max(np.abs(ec - ep) / np.abs(ep))) if ep.size else 1.0
+    print(f"[21] TSGM_DEBUG on a {u[CROP].shape[:2]} crop (cfg1, 3 "
+          f"iterations): energies CUDA {ec.tolist()} CPU {ep.tolist()}, max "
+          f"relative difference {rel:.3g} (<= 1e-6)", flush=True)
+    if ec.shape != (3, 3) or ec.shape != ep.shape or not rel <= 1e-6:
+        raise AssertionError("TSGM_DEBUG energies: CUDA and CPU disagree")
+
+    # ---- 22. cfg3_b8 and cfg3_b32: batched pairs ----------------------
+    sat = get_preset("satellite", test_lr=True)
+    L_sat = SAT_DMAX - SAT_DMIN + 1
+    us32, vs32, ds32 = _satellite_pairs(32)
+    keys = ("disp", "cost", "disp_right", "cost_right")
+    for K in (8, 32):
+        tag = f"cfg3_b{K}"
+        us, vs = us32[:K], vs32[:K]
+        _zero(FUSED_KERNELS)
+        compute_disparity(us[0], vs[0], sat, device="cuda")
+        one = _counts(FUSED_KERNELS)
+        _zero(FUSED_KERNELS)
+        torch.cuda.reset_peak_memory_stats()
+        res = compute_disparity_batch(us, vs, sat, device="cuda",
+                                      outputs=keys)
+        got = _counts(FUSED_KERNELS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if got != one:
+            raise AssertionError(f"{tag}: launches {got}, one pair's {one}")
+        for n in got:
+            by_path[n][tag] = got[n]
+        for k in range(K):
+            ref = compute_disparity(us[k], vs[k], sat, device="cuda")
+            for key in keys:
+                _compare(f"{tag} pair {k} {key}", torch.from_numpy(
+                    res[key][k]), torch.from_numpy(ref[key]))
+        ok = np.isfinite(res["disp"])
+        survive = float(ok.mean())
+        near = float((np.abs(res["disp"][ok] - ds32[:K][ok]) <= 0.5).mean())
+        bw = _walls(lambda: compute_disparity_batch(
+            us, vs, sat, device="cuda", outputs=("disp", "cost")), NEW_REPS)
+        sw = _walls(lambda: [compute_disparity(
+            us[k], vs[k], sat, device="cuda", outputs=("disp", "cost"))
+            for k in range(K)], NEW_REPS)
+        work = K * 2 * SAT_H * SAT_W * L_sat
+        bm, sm = statistics.median(bw), statistics.median(sw)
+        print(f"[22] {tag}: {K} pairs {SAT_W}x{SAT_H}x1 L={L_sat} (satellite"
+              f" preset, LR) through compute_disparity_batch: launches "
+              f"{got} (one pair's), every pair's disp and cost == its own "
+              f"compute_disparity on the card ({TOL}), LR survivors "
+              f"{survive:.4f}, within 0.5 px {near:.4f}, peak device memory "
+              f"{peak:.3f} GiB; batch wall s {bw}, median {bm:.4f} s = "
+              f"{work / bm / 1e6:.1f} MP*disp/s; sequential loop median "
+              f"{sm:.4f} s = {work / sm / 1e6:.1f} MP*disp/s on {card}",
+              flush=True)
+        if survive < 0.70 or near < 0.95:
+            raise AssertionError(f"{tag} recovery below threshold")
+    # K1 and K2 against their plain versions on cfg3_b8's batch (the
+    # pair axis, the pair-major ring, K2's n % nsides table)
+    lefts, rights, kw = _batch_k1_inputs(sat, us32, vs32, 8)
+    got, ns = fused.fused_planes(lefts, rights, **kw)
+    t, (want, _) = _event_once(lambda: fused.fused_planes(
+        lefts, rights, wavefront=cuda_fused.fused_wavefront_plain, **kw))
+    e1 = _compare("K1 cfg3_b8 batch", got, want)
+    del want
+    k2 = cuda_fused.wta(got, nspaces=ns, sides=kw["sides"], npair=8,
+                        want_taps=True)
+    ref = cuda_fused.wta_plain(got, nspaces=ns, sides=kw["sides"], npair=8,
+                               want_taps=True)
+    torch.cuda.synchronize()
+    e2 = max(_compare(f"K2 cfg3_b8 batch {what}", a, b)
+             for what, a, b in zip(("disp", "cost", "taps"), k2, ref))
+    errs["fused_wavefront"] = max(errs["fused_wavefront"], e1)
+    errs["wta"] = max(errs["wta"], e2)
+    print(f"[22] K1 == plain on cfg3_b8's batch (8 pairs, 16 sides, "
+          f"{ns} spaces, {SAT_H}x{SAT_W}, L={L_sat}): {TOL}, max abs err "
+          f"{e1}, plain {t:.1f} ms; K2 + taps == plain on those planes: max "
+          f"abs err {e2}", flush=True)
+    del got, k2, ref
+    # K1 a front in a batch of 8 against one pair
+    nf = _fronts(kw["groups"], SAT_H, SAT_W)
+    k1_b8 = _event_ms(lambda: fused.fused_planes(lefts, rights, **kw), 3)
+    lefts, rights, kw = _batch_k1_inputs(sat, us32, vs32, 1)
+    k1_b1 = _event_ms(lambda: fused.fused_planes(lefts, rights, **kw), 3)
+    print(f"[22] K1 at the satellite geometry ({nf} front kernels): K = 8 "
+          f"{k1_b8:.3f} ms = {k1_b8 / nf * 1e3:.3f} us a front, K = 1 "
+          f"{k1_b1:.3f} ms = {k1_b1 / nf * 1e3:.3f} us a front on {card}",
+          flush=True)
+    del lefts, rights, kw
+    del us32, vs32, ds32
+    torch.cuda.empty_cache()
+
+    # ---- 23. cfg3_scene: the tiled runner on an 8x8 mosaic ------------
+    su, sv, sd = _satellite_pairs(1, seed0=100)
+    su, sv = (np.ascontiguousarray(np.tile(a[0], (8, 8, 1)))
+              for a in (su, sv))
+    sd = np.tile(sd[0], (8, 8))
+    SH, SW = su.shape[:2]
+    _zero(FUSED_KERNELS)
+    scene = tiled_disparity(su, sv, sat, tile=512, margin=64, batch=5)
+    got = _counts(FUSED_KERNELS)
+    if min(got.values()) < 1:
+        raise AssertionError(f"cfg3_scene bypassed a kernel: {got}")
+    for n in got:
+        by_path[n]["cfg3_scene"] = got[n]
+    single = tiled_disparity(su, sv, sat, tile=512, margin=64, batch=1)
+    for key in ("disp", "cost"):
+        _compare(f"cfg3_scene batch 5 against batch 1 {key}",
+                 torch.from_numpy(scene[key]), torch.from_numpy(single[key]))
+    ok = np.isfinite(scene["disp"])
+    survive = float(ok.mean())
+    near = float((np.abs(scene["disp"][ok] - sd[ok]) <= 0.5).mean())
+    tw = _walls(lambda: tiled_disparity(su, sv, sat, tile=512, margin=64,
+                                        batch=5), NEW_REPS - 1)
+    t1 = _walls(lambda: tiled_disparity(su, sv, sat, tile=512, margin=64,
+                                        batch=1), 1)
+    work = 2 * SH * SW * L_sat
+    tm = statistics.median(tw)
+    print(f"[23] cfg3_scene: {SW}x{SH}x1 mosaic (8x8 of a {SAT_W}x{SAT_H} "
+          f"pair), L={L_sat}, tiled_disparity(tile=512, margin=64, batch=5):"
+          f" {scene['tiles_solved']} tiles solved, launches {got}, batch 5 =="
+          f" batch 1 ({TOL}), LR survivors {survive:.4f}, within 0.5 px "
+          f"{near:.4f}; wall s {tw}, median {tm:.4f} s = "
+          f"{work / tm / 1e6:.1f} MP*disp/s of scene work; batch=1 {t1[0]:.4f}"
+          f" s = {work / t1[0] / 1e6:.1f} MP*disp/s on {card}", flush=True)
+    if scene["tiles_solved"] != 25 or survive < 0.70 or near < 0.95:
+        raise AssertionError("cfg3_scene: tiles or recovery")
+    del su, sv, sd, scene, single
+
     launches = {n: sum(c.values()) for n, c in by_path.items()}
-    print(f"[18] smoke run took {time.perf_counter() - t_start:.1f} s",
+    print(f"[23] smoke run took {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     src = {"fused_wavefront": ("mgm_tpu_torch/csrc/fused_wavefront.cu",

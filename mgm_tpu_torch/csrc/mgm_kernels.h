@@ -16,22 +16,35 @@ struct WaveParams {
                        // int32 census words, or BT's [I, Imin, Imax]
   const void* right;   // (N, R, C, nch) right image of each side
   const float* w8;     // (N, R, C, 8) edge weights of each side, or 0
-  float* out;          // (Mp, R, C, L) per-plane sums, image layout
-  float* hist;         // (D + 1, Ml, R, L) ring of per-recursion fronts
-  float* mins;         // (D + 1, Ml, R) their minima over labels
+  // (N, R, C) per-pixel label windows of each side (-m/-M), or 0: the
+  // plane's constant window then applies
+  const int* lo_px;
+  const int* hi_px;
+  float* out;          // (Mp / nsides * N, R, C, L) sums, image layout
+  float* hist;         // (npair, D + 1, Ml, R, L) ring of recursion fronts
+  float* mins;         // (npair, D + 1, Ml, R) their minima over labels
   int R, C, L, nch;
-  int Mp, Ml, D;       // planes, recursions, deepest front lag
+  int Mp, Ml, D;       // a pair's planes and recursions, deepest lag
+  // image pairs (the grid's third axis) and sides a pair: side s of
+  // pair k is image n = k * nsides + s of left, right, w8 and the
+  // windows (N = npair * nsides), and the planes come space-major,
+  // plane i = space * nsides + side, so pair k's copy of plane i is
+  // out plane (i - side) * npair + k * nsides + side
+  int npair, nsides;
   // slope and fronts per column step of the launch's space: A/B (slope,
   // 1), V (0, 1), the parity spaces PA/PB (1, 2)
   int slope, fstep;
   int mgm, mode, use_fh, accumulate, reverse;  // mode: MGM_COST_*
+  // FH with per-pixel windows: each message's input is masked with the
+  // target pixel's window (update_costW_trunclinear, mgm_core.cc:229)
+  int fh_restrict;
   float tmax, p1, p2, kappa, inv_nw;           // inv_nw: census 1/nch
   // plane i: label-0 disparity, label window, skew origin and sign
   // (col = (t - a0 + ssgn * slope * r) / fstep, the row sitting out
   // fronts where that does not divide), side, whether it folds
   // kappa*CC, and the recursions that sum into it, in recursion order.
   // The small tables are bytes: the struct goes with every front
-  // launch, and bytes keep it at 864 (int tables: 2,684).
+  // launch, and bytes keep it at 888 (int tables: 2,708).
   int plane_gmin[MGM_MAX_PLANES], plane_lo[MGM_MAX_PLANES];
   int plane_hi[MGM_MAX_PLANES], plane_a0[MGM_MAX_PLANES];
   signed char plane_side[MGM_MAX_PLANES], plane_ssgn[MGM_MAX_PLANES];
@@ -72,7 +85,9 @@ struct WtaParams {
   float* disp;         // (N, R, C)
   float* cost;         // (N, R, C)
   float* taps;         // (N, R, 4, C) S[oc-1 .. oc+2], or 0
-  int N, nspaces, R, C, L;
+  // N = pairs * nsides: side n takes the windows of table entry
+  // n % nsides (every pair of a batch has the same sides)
+  int N, nsides, nspaces, R, C, L;
   int side_gmin[MGM_MAX_SIDES], side_lo[MGM_MAX_SIDES],
       side_hi[MGM_MAX_SIDES];
 };

@@ -8,7 +8,8 @@
 // A, B, V, PA, PB (the JAX assembly's association), cand = s inside the
 // label window where -inf < s < inf (NaN excluded) and +inf elsewhere,
 // cost = min(cand), idx = the lowest label with cand == cost, and
-// disp = gmin + idx.  An all-invalid window gives idx 0 and cost +inf.
+// disp = gmin + idx.  A batch of pairs shares one table of sides: side
+// n takes entry n % nsides.  An all-invalid window gives idx 0 and cost +inf.
 // With `taps`, also the four raw sums S[oc-1 .. oc+2] that the subpixel
 // fits read, (N, R, 4, C), oc = clip(idx, 1, max(L - 3, 1)).
 //
@@ -31,7 +32,8 @@ __global__ void wta_kernel(const WtaParams p) {
   const int n = (int)(pix / ((long long)p.R * p.C));
   const long long rc = pix - (long long)n * p.R * p.C;
   const size_t plane = (size_t)p.R * p.C * p.L;
-  const int lo = p.side_lo[n], hi = p.side_hi[n];
+  const int sd = n % p.nsides;  // every pair of a batch: one side table
+  const int lo = p.side_lo[sd], hi = p.side_hi[sd];
   float best = INFINITY;
   int bi = INT_MAX;
   for (int l = lane; l < p.L; l += 32) {
@@ -54,7 +56,7 @@ __global__ void wta_kernel(const WtaParams p) {
     }
   }
   if (lane == 0) {
-    p.disp[pix] = (float)(p.side_gmin[n] + bi);
+    p.disp[pix] = (float)(p.side_gmin[sd] + bi);
     p.cost[pix] = best;
   }
   if (p.taps && lane < 4) {
@@ -77,7 +79,8 @@ extern "C" int mgm_wta_params_size(void) { return (int)sizeof(WtaParams); }
 
 extern "C" int mgm_wta(const WtaParams* params, void* stream) {
   const WtaParams p = *params;
-  if (p.N < 1 || p.N > MGM_MAX_SIDES || p.L < 1)
+  if (p.N < 1 || p.nsides < 1 || p.nsides > MGM_MAX_SIDES ||
+      p.N % p.nsides != 0 || p.L < 1)
     return (int)cudaErrorInvalidValue;
   const long long npix = (long long)p.N * p.R * p.C;
   const int warps = 8;

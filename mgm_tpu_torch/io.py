@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import struct
 
 import numpy as np
 
@@ -70,6 +71,33 @@ def _native_write(path: str, img: np.ndarray) -> bool:
     split = np.ascontiguousarray(np.moveaxis(img, -1, 0), np.float32)
     ptr = split.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
     return lib.iio_lite_write(path.encode(), ptr, w, h, c) == 0
+
+
+def _write_tiff(path: str, img: np.ndarray) -> None:
+    """An (H, W, C) float32 array as a baseline little-endian TIFF: one
+    uncompressed strip, chunky samples, SampleFormat 3 (IEEE float)."""
+    h, w, c = img.shape
+    data = np.ascontiguousarray(img, "<f4").tobytes()
+    per_sample = struct.pack(f"<{c}H", *[32] * c), struct.pack(
+        f"<{c}H", *[3] * c)                # BitsPerSample, SampleFormat
+    head = 8 + 2 + 12 * 11 + 4             # header and the IFD's 11 tags
+    spill = [v for v in per_sample if len(v) > 4]
+    strip = head + sum(len(v) for v in spill)
+    spill_at = iter(range(head, strip, len(per_sample[0])))
+    ifd = struct.pack("<H", 11)
+    for tag, typ, val in ((256, 4, w), (257, 4, h), (258, 3, per_sample[0]),
+                          (259, 3, 1), (262, 3, 1), (273, 4, strip),
+                          (277, 3, c), (278, 4, h), (279, 4, len(data)),
+                          (284, 3, 1), (339, 3, per_sample[1])):
+        if isinstance(val, bytes):         # one SHORT per sample
+            raw = val if len(val) <= 4 else struct.pack("<I", next(spill_at))
+            ifd += struct.pack("<HHI", tag, typ, c) + raw.ljust(4, b"\0")
+        else:
+            ifd += struct.pack("<HHI", tag, typ, 1) + struct.pack(
+                "<I" if typ == 4 else "<H", val).ljust(4, b"\0")
+    with open(path, "wb") as f:
+        f.write(b"II*\0" + struct.pack("<I", 8) + ifd + b"\0" * 4
+                + b"".join(spill) + data)
 
 
 def _read_pfm(path: str) -> np.ndarray:
@@ -176,13 +204,11 @@ def write_image(path: str, img: np.ndarray) -> None:
     if ext == ".pfm":
         _write_pfm(path, img)
         return
+    if ext in (".tif", ".tiff"):
+        _write_tiff(path, img)
+        return
     from PIL import Image
 
-    if ext in (".tif", ".tiff"):
-        import imageio.v3 as iio3
-
-        iio3.imwrite(path, img[:, :, 0] if img.shape[2] == 1 else img)
-        return
     # integer formats: clip to [0, 255] like iio does for png/jpeg
     q = np.clip(np.nan_to_num(img), 0, 255).astype(np.uint8)
     if q.shape[2] == 1:

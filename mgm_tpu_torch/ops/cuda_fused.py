@@ -6,11 +6,12 @@ plain PyTorch version and a launch counter:
   K1 `fused_wavefront` (csrc/fused_wavefront.cu) replaces
      pallas_fused._kernel: one scan direction of the fused cost + MGM
      recursion over every (side x space) plane of a launch, for every
-     pointwise cost family, the SGM or truncated-linear (FH) potential
-     and optional edge weights.
+     pointwise cost family, the SGM or truncated-linear (FH) potential,
+     optional edge weights, constant or per-pixel label windows (with
+     the FH window restriction) and a batch of image pairs.
   K2 `wta` (csrc/wta.cu) replaces pallas_fused._wta_kernel: the sum of
      the spaces, the windowed winner-take-all and optionally the four
-     S taps of the subpixel fits.
+     S taps of the subpixel fits, for a batch of pairs.
 
 The per-label cost and the messages are defined once on each side:
 csrc/mgm_device.cuh on the card (shared with K5 and K8), and
@@ -38,6 +39,13 @@ T = fstep*(C-1) + slope*(R-1) + 1 fronts:
 (s = 1 or 2).  In the parity spaces a row sits out every other front;
 the TPU packs the live half-rows into lanes, the port keeps the image
 layout and skips them.
+
+A batch of `npair` image pairs shares one table of (side, space)
+planes: the images are (npair * nsides, R, C, nch), pair-major, and the
+volume keeps the space-major order over all N = npair * nsides sides,
+plane space * N + side; K1 runs the pair as a grid axis (a batch
+launches as many fronts as one pair), K2 takes side n's window from
+entry n % nsides of its table.
 """
 from __future__ import annotations
 
@@ -58,11 +66,13 @@ MAX_SIDES, MAX_LABELS = 16, 1024
 
 class _WaveParams(ctypes.Structure):
     _fields_ = (
-        [(f, ctypes.c_void_p) for f in ("left", "right", "w8", "out", "hist",
-                                        "mins")]
+        [(f, ctypes.c_void_p) for f in ("left", "right", "w8", "lo_px",
+                                        "hi_px", "out", "hist", "mins")]
         + [(f, ctypes.c_int) for f in ("R", "C", "L", "nch", "Mp", "Ml",
-                                       "D", "slope", "fstep", "mgm", "mode",
-                                       "use_fh", "accumulate", "reverse")]
+                                       "D", "npair", "nsides", "slope",
+                                       "fstep", "mgm", "mode", "use_fh",
+                                       "accumulate", "reverse",
+                                       "fh_restrict")]
         + [(f, ctypes.c_float) for f in ("tmax", "p1", "p2", "kappa",
                                          "inv_nw")]
         + [(f, ctypes.c_int * MAX_PLANES)
@@ -80,7 +90,8 @@ class _WaveParams(ctypes.Structure):
 class _WtaParams(ctypes.Structure):
     _fields_ = (
         [(f, ctypes.c_void_p) for f in ("vol", "disp", "cost", "taps")]
-        + [(f, ctypes.c_int) for f in ("N", "nspaces", "R", "C", "L")]
+        + [(f, ctypes.c_int) for f in ("N", "nsides", "nspaces", "R", "C",
+                                       "L")]
         + [(f, ctypes.c_int * MAX_SIDES)
            for f in ("side_gmin", "side_lo", "side_hi")])
 
@@ -138,18 +149,38 @@ def _valid_rows(t: int, a0: int, ssgn: int, slope: int, C: int, R: int,
     return range(r0, min(r1, R), fstep)
 
 
+def _pair_tables(planes, mspecs, npair: int, nsides: int):
+    """Every pair's copy of one pair's planes and recursions, and the
+    output plane of each copy: pair k's plane i (space-major, i =
+    space * nsides + side) lands at (i - side) * npair + k * nsides +
+    side, the volume's space-major order over all npair * nsides
+    sides."""
+    Mp = len(planes)
+    out_ix = [(i - p[0]) * npair + k * nsides + p[0]
+              for k in range(npair) for i, p in enumerate(planes)]
+    planes = [(p[0] + k * nsides,) + tuple(p[1:])
+              for k in range(npair) for p in planes]
+    mspecs = [(ms[0] + k * Mp,) + tuple(ms[1:])
+              for k in range(npair) for ms in mspecs]
+    return planes, mspecs, out_ix
+
+
 def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
                           combos, L, slope, fstep, mgm, mode, tmax, p1, p2,
-                          kappa, reverse, use_fh=False, w8=None):
+                          kappa, reverse, use_fh=False, w8=None, lo_px=None,
+                          hi_px=None, fh_restrict=False, npair=1):
     """Plain PyTorch version of K1: a loop over fronts with tensor ops
     over (planes or recursions, R, L), in the fused kernel's order of
     operations (pallas_fused.py:834-949), not the dense solver's.
 
-    left/right: (N, R, C, nch) images per side: float32 (ad, sd), int32
-      census words, or BT's [I, Imin, Imax] float32 blocks.
-    out: the (Mp, R, C, L) volume the launch writes, or adds onto with
-      `accumulate` (the backward launch onto the forward one's output).
-    planes: (side, gmin, lo, hi, a0, ssgn, fold) per output plane.
+    left/right: (N, R, C, nch) images, N = npair * nsides sides,
+      pair-major: float32 (ad, sd), int32 census words, or BT's
+      [I, Imin, Imax] float32 blocks.
+    out: the (Mp / nsides * N, R, C, L) volume the launch writes, or
+      adds onto with `accumulate` (the backward launch onto the forward
+      one's output).
+    planes: (side, gmin, lo, hi, a0, ssgn, fold) per output plane of
+      one pair, space-major (plane i = space * nsides + side).
     slope, fstep: the launch space's front map (module docstring).
     mspecs: (plane, ranks, border, wch) per recursion; ranks index
       `combos`, border = (need_left, need_right, need_top, need_bottom),
@@ -159,9 +190,15 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
     mode: a cuda_cost.MODES family; tmax: the truncation.
     use_fh: the truncated-linear potential (FH messages), else SGM.
     w8: (N, R, C, 8) float32 edge weights of each side, or None.
+    lo_px/hi_px: (N, R, C) int32 per-pixel label windows, or None (the
+      planes' constant lo/hi); fh_restrict masks each FH message's input
+      with the target pixel's window.
+    npair: the pairs of the batch, each with the same planes.
     Returns `out`."""
     dev = left.device
-    _, R, C, _ = left.shape
+    N, R, C, _ = left.shape
+    planes, mspecs, out_ix = _pair_tables(planes, mspecs, npair,
+                                          N // npair)
     Mp, Ml = len(planes), len(mspecs)
     D = max(lag for lag, _ in combos)
     T = fstep * (C - 1) + slope * (R - 1) + 1
@@ -179,6 +216,7 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
     lab = torch.arange(L, device=dev)
     in_win = (lab >= lo) & (lab <= hi)             # (Mp, 1, L)
     pidx = torch.arange(Mp, device=dev)[:, None]
+    rec_plane = torch.tensor([ms[0] for ms in mspecs], device=dev)
     # 0-dim tensors: products and sums with them round in float32, as
     # the kernel's; a true division (CUDA would turn a division by a
     # Python number into a reciprocal multiply)
@@ -186,7 +224,6 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
     mgm_div = torch.tensor(float(mgm), **f32)
     halve = mgm == 2 and not use_fh and w8 is None
     if w8 is not None:
-        rec_plane = torch.tensor([ms[0] for ms in mspecs], device=dev)
         W8 = w8[side[rec_plane]]                   # (Ml, R, C, 8)
         # per combo: the weight channel of the dep it is in each
         # recursion (0 where it is not: that message is never read)
@@ -201,18 +238,28 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
         num = t - a0 + ssgn * slope * rows          # (Mp, R)
         col = num // fstep
         valid = (num >= 0) & (num % fstep == 0) & (col < C)
-        u_t = U[pidx, rows, col.clamp(0, C - 1)]    # (Mp, R, nch)
+        colc = col.clamp(0, C - 1)
+        u_t = U[pidx, rows, colc]                   # (Mp, R, nch)
         q = col[..., None] + gmin + lab             # (Mp, R, L)
         v_t = V[pidx[..., None], rows[:, None], q.clamp(0, C - 1)]
         raw = pointwise_cost(u_t[:, :, None], v_t, mode)
         e = torch.where((q >= 0) & (q < C), raw.clamp(max=tmax), tmax)
+        if lo_px is not None:
+            # each pixel's own window (pallas_fused.py:860-862)
+            win = ((lab >= lo_px[side[:, None], rows, colc][..., None])
+                   & (lab <= hi_px[side[:, None], rows, colc][..., None]))
+        else:
+            win = in_win
         # all-invalid window -> 0 (mgm_costvolume.h:410-421)
-        anyfin = (in_win & (e < INF)).any(-1, keepdim=True)
+        anyfin = (win & (e < INF)).any(-1, keepdim=True)
         e = torch.where(anyfin, e, 0.0)
-        cc = torch.where(in_win & valid[..., None], e, INF)
+        cc = torch.where(win & valid[..., None], e, INF)
         if w8 is not None:
             # each recursion's weights at the pixels being updated
-            wt = W8[midx, rows, col[rec_plane].clamp(0, C - 1)]  # (Ml, R, 8)
+            wt = W8[midx, rows, colc[rec_plane]]    # (Ml, R, 8)
+        # the FH input mask: each recursion's target window
+        fh_win = (win.expand(Mp, R, L)[rec_plane]
+                  if use_fh and fh_restrict and lo_px is not None else None)
 
         msgs = []
         for ci, (lag, roll) in enumerate(combos):
@@ -226,7 +273,7 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
                 p1w, p2w = d * p1f, d * p2f
             else:
                 p1w, p2w = p1f, p2f
-            msgs.append(_fh_msg(f, mk, p1w, p2w, None) if use_fh
+            msgs.append(_fh_msg(f, mk, p1w, p2w, fh_win) if use_fh
                         else _sgm_msg(f, mk, p1w, p2w))
 
         news = []
@@ -267,8 +314,8 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
             cols = col[i, rr]
             o = o[rr]
             if accumulate:
-                o = out[i, rr, cols] + o
-            out[i, rr, cols] = o
+                o = out[out_ix[i], rr, cols] + o
+            out[out_ix[i], rr, cols] = o
         new = torch.stack(news)
         hist = [(new, new.amin(-1))] + hist[:-1]
     return out
@@ -276,7 +323,8 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
 
 def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
                     L, slope, fstep, mgm, mode, tmax, p1, p2, kappa, reverse,
-                    use_fh=False, w8=None):
+                    use_fh=False, w8=None, lo_px=None, hi_px=None,
+                    fh_restrict=False, npair=1):
     """K1: one scan direction of the fused recursion (arguments as in
     fused_wavefront_plain).  CPU tensors take the plain version; CUDA
     tensors launch csrc/fused_wavefront.cu, T front kernels on the
@@ -284,7 +332,8 @@ def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
     kw = dict(accumulate=accumulate, planes=planes, mspecs=mspecs,
               combos=combos, L=L, slope=slope, fstep=fstep, mgm=mgm,
               mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
-              reverse=reverse, use_fh=use_fh, w8=w8)
+              reverse=reverse, use_fh=use_fh, w8=w8, lo_px=lo_px,
+              hi_px=hi_px, fh_restrict=fh_restrict, npair=npair)
     dev = left.device
     if dev.type == "cpu":
         return fused_wavefront_plain(left, right, out, **kw)
@@ -292,34 +341,48 @@ def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
         raise ValueError(f"fused_wavefront: unsupported device {dev}")
     N, R, C, nch = left.shape
     Mp, Ml, nco = len(planes), len(mspecs), len(combos)
+    ns = N // npair if npair >= 1 else 0
     if (Mp > MAX_PLANES or Ml > MAX_RECS or nco > MAX_COMBOS
             or not 1 <= mgm <= MAX_RANKS or not 1 <= L <= MAX_LABELS
-            or mode not in MODES or slope < 0 or fstep < 1):
+            or mode not in MODES or slope < 0 or fstep < 1
+            or not 1 <= npair <= 65535 or ns < 1 or N != npair * ns
+            or Mp % ns or any(p[0] != i % ns for i, p in enumerate(planes))
+            or (lo_px is None) != (hi_px is None)):
         raise ValueError(f"fused_wavefront: outside the kernel's limits "
                          f"(planes {Mp}, recursions {Ml}, combos {nco}, "
                          f"mgm {mgm}, L {L}, mode {mode!r}, slope {slope}, "
-                         f"fstep {fstep})")
+                         f"fstep {fstep}, {npair} pairs of {N} sides; the "
+                         f"planes space-major, lo/hi both or neither)")
     dtype = torch.int32 if mode == "census" else torch.float32
     if mode in ("btad", "btsd") and nch % 3:
         raise ValueError(f"fused_wavefront: BT needs [I, Imin, Imax] "
                          f"blocks, got {nch} channels")
     _check("left", left, (N, R, C, nch), dev, dtype)
     _check("right", right, (N, R, C, nch), dev, dtype)
-    _check("out", out, (Mp, R, C, L), dev)
+    _check("out", out, (Mp // ns * N, R, C, L), dev)
     if w8 is not None:
         _check("w8", w8, (N, R, C, 8), dev)
+    if lo_px is not None:
+        _check("lo_px", lo_px, (N, R, C), dev, torch.int32)
+        _check("hi_px", hi_px, (N, R, C), dev, torch.int32)
     D = max(lag for lag, _ in combos)
-    hist = torch.empty((D + 1, Ml, R, L), dtype=torch.float32, device=dev)
-    mins = torch.empty((D + 1, Ml, R), dtype=torch.float32, device=dev)
+    hist = torch.empty((npair, D + 1, Ml, R, L), dtype=torch.float32,
+                       device=dev)
+    mins = torch.empty((npair, D + 1, Ml, R), dtype=torch.float32,
+                       device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
 
     p = _WaveParams(
-        left=left.data_ptr(), right=right.data_ptr(),
-        w8=None if w8 is None else w8.data_ptr(), out=out.data_ptr(),
+        left=left.data_ptr(), right=right.data_ptr(), w8=ptr(w8),
+        lo_px=ptr(lo_px), hi_px=ptr(hi_px), out=out.data_ptr(),
         hist=hist.data_ptr(), mins=mins.data_ptr(), R=R, C=C, L=L, nch=nch,
-        Mp=Mp, Ml=Ml, D=D, slope=slope, fstep=fstep, mgm=mgm,
-        mode=MODES.index(mode), use_fh=int(use_fh),
+        Mp=Mp, Ml=Ml, D=D, npair=npair, nsides=ns, slope=slope, fstep=fstep,
+        mgm=mgm, mode=MODES.index(mode), use_fh=int(use_fh),
         accumulate=int(accumulate), reverse=int(reverse),
-        tmax=tmax, p1=p1, p2=p2, kappa=kappa, inv_nw=1.0 / nch)
+        fh_restrict=int(fh_restrict and lo_px is not None), tmax=tmax,
+        p1=p1, p2=p2, kappa=kappa, inv_nw=1.0 / nch)
     for i, (side, gmin, lo, hi, a0, ssgn, fold) in enumerate(planes):
         recs = [m for m, spec in enumerate(mspecs) if spec[0] == i]
         p.plane_side[i], p.plane_gmin[i] = side, gmin
@@ -348,19 +411,22 @@ fused_wavefront.launches = 0
 
 # ---------------------------------------------------------------- K2 ----
 
-def wta_plain(vol, *, nspaces, sides, want_taps=False):
+def wta_plain(vol, *, nspaces, sides, npair=1, want_taps=False):
     """Plain PyTorch version of K2 (pallas_fused.py:211-240).
 
-    vol: (nspaces * N, R, C, L) space-major planes; sides: (gmin, lo, hi)
-    per side.  Returns (disp, cost), each (N, R, C) float32, and with
-    `want_taps` also the (N, R, 4, C) taps: the space sum s at
-    clip(oc - 1 + k, 0, L - 1), oc = clip(idx, 1, max(L - 3, 1)), the
-    four values the subpixel fits read (refine.subpixel_refine_taps)."""
-    N = len(sides)
+    vol: (nspaces * N, R, C, L) space-major planes, N = npair *
+    len(sides); sides: (gmin, lo, hi) per side of one pair, side n
+    taking entry n % len(sides).  Returns (disp, cost), each (N, R, C)
+    float32, and with `want_taps` also the (N, R, 4, C) taps: the space
+    sum s at clip(oc - 1 + k, 0, L - 1), oc = clip(idx, 1,
+    max(L - 3, 1)), the four values the subpixel fits read
+    (refine.subpixel_refine_taps)."""
+    N = npair * len(sides)
     L = vol.shape[-1]
     lab = torch.arange(L, device=vol.device)
     disps, costs, taps = [], [], []
-    for n, (gmin, lo, hi) in enumerate(sides):
+    for n in range(N):
+        gmin, lo, hi = sides[n % len(sides)]
         s = vol[n]
         for si in range(1, nspaces):
             s = s + vol[si * N + n]
@@ -378,19 +444,21 @@ def wta_plain(vol, *, nspaces, sides, want_taps=False):
     return out + (torch.stack(taps),) if want_taps else out
 
 
-def wta(vol, *, nspaces, sides, want_taps=False):
+def wta(vol, *, nspaces, sides, npair=1, want_taps=False):
     """K2: sum of the spaces + windowed WTA (+ the taps), arguments and
     results as in wta_plain.  CPU tensors take the plain version; CUDA
     tensors launch csrc/wta.cu."""
     dev = vol.device
     if dev.type == "cpu":
-        return wta_plain(vol, nspaces=nspaces, sides=sides,
+        return wta_plain(vol, nspaces=nspaces, sides=sides, npair=npair,
                          want_taps=want_taps)
     if dev.type != "cuda":
         raise ValueError(f"wta: unsupported device {dev}")
-    N = len(sides)
-    if not 1 <= N <= MAX_SIDES or vol.ndim != 4:
-        raise ValueError(f"wta: {N} sides, volume {tuple(vol.shape)}")
+    ns = len(sides)
+    N = npair * ns
+    if not 1 <= ns <= MAX_SIDES or npair < 1 or vol.ndim != 4:
+        raise ValueError(f"wta: {npair} pairs of {ns} sides, volume "
+                         f"{tuple(vol.shape)}")
     _, R, C, L = vol.shape
     _check("vol", vol, (nspaces * N, R, C, L), dev)
     disp = torch.empty((N, R, C), dtype=torch.float32, device=dev)
@@ -400,7 +468,7 @@ def wta(vol, *, nspaces, sides, want_taps=False):
     p = _WtaParams(vol=vol.data_ptr(), disp=disp.data_ptr(),
                    cost=cost.data_ptr(),
                    taps=None if taps is None else taps.data_ptr(), N=N,
-                   nspaces=nspaces, R=R, C=C, L=L)
+                   nsides=ns, nspaces=nspaces, R=R, C=C, L=L)
     for n, (gmin, lo, hi) in enumerate(sides):
         p.side_gmin[n], p.side_lo[n], p.side_hi[n] = gmin, lo, hi
     err = _lib().mgm_wta(ctypes.byref(p), _stream(dev))

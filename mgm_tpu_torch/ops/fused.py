@@ -10,19 +10,20 @@ in one space with opposite scan directions, so the backward launch
 accumulates onto the forward launch's planes.
 
 `mgm_solve_fused` ports the JAX solve (fused.py:512-672) for every
-schedule of `split_passes` (ndir 1-16, TSGM 1-4) with constant label
-windows: every pointwise cost family in flight (ad, sd, census words,
-btad/btsd blocks), the SGM or truncated-linear (FH) potential, and
-optional edge weights.  Every group (A/B, V, PA/PB) runs through K1
-into one image-layout volume with the spaces in the order A, B, V,
-PA, PB.  Without leftover passes K2 sums the spaces and takes the WTA
-(and the subpixel taps).  With them (ndir > 8) the knight passes run
-dense: K8 builds the cost volumes, `aggregate` runs K6 -> K5 -> K7 on
-the leftover passes, and the S assembly, WTA and taps are tensor code.
+schedule of `split_passes` (ndir 1-16, TSGM 1-4): every pointwise cost
+family in flight (ad, sd, census words, btad/btsd blocks), the SGM or
+truncated-linear (FH) potential, optional edge weights, constant or
+per-pixel (-m/-M) label windows, TSGM_ITER's tightened S windows, and a
+batch of K image pairs (K1's and K2's pair axis).  Every group (A/B,
+V, PA/PB) runs through K1 into one image-layout volume with the spaces
+in the order A, B, V, PA, PB.  With constant windows and no leftover
+passes K2 sums the spaces and takes the WTA (and the subpixel taps).
+Otherwise the sum is materialised: with leftover passes (ndir > 8) the
+knight passes run dense (K8 builds the cost volumes, `aggregate` runs
+K6 -> K5 -> K7), and the S assembly, WTA and taps are tensor code.
 The TPU's K3 (`pallas_fused.unskew_planes`) has no counterpart: K1
 already stores the image layout, so the assembled sum has nothing to
-unskew.  Per-pixel windows (ROADMAP queue 1 item 6) take no argument
-yet; batches raise NotImplementedError naming item 8.
+unskew.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import torch
 from ..solver import window_wta
 from . import cuda_fused
 from .aggregate import PASS_TABLE, aggregate
-from .cost import _bt_aux, build_cost_volume
+from .cost import _bt_aux, build_cost_volume, window_mask
 from .refine import taps_from_S
 
 # image-space causal dirs dir1..dir4 per pass (mgm_core.cc:463-471);
@@ -215,15 +216,19 @@ def group_launches(group, sides, *, R: int, mgm: int, kappa: float,
 
 def fused_planes(lefts, rights, *, sides, L: int, groups, mgm: int,
                  p1: float, p2: float, mode: str, tmax: float, kappa: float,
-                 use_fh: bool = False, w8=None, wavefront=None):
+                 use_fh: bool = False, w8=None, lo_px=None, hi_px=None,
+                 fh_restrict: bool = False, npair: int = 1, wavefront=None):
     """Every launch of `groups` (from split_passes) through `wavefront`:
     K1 (cuda_fused.fused_wavefront) when None; tests and the smoke run
     pass its plain version to compare.  The first group folds kappa*CC
     (JAX's fold_group, fused.py:456-464).
 
     lefts/rights: (N, R, C, nch) images per side as K1 takes them
-    (float32, int32 census words, or BT's [I, Imin, Imax] blocks);
-    w8: (N, R, C, 8) edge weights or None.  Returns the
+    (float32, int32 census words, or BT's [I, Imin, Imax] blocks), N =
+    npair * len(sides), pair-major; sides: (gmin, lo, hi) per side of
+    one pair; w8: (N, R, C, 8) edge weights or None; lo_px/hi_px:
+    (N, R, C) int32 per-pixel label windows or None, fh_restrict
+    masking the FH messages' input with them.  Returns the
     (nspaces * N, R, C, L) volume, spaces in the order A, B, V, PA, PB
     (each group's launches write one contiguous slice of planes), and
     nspaces."""
@@ -240,7 +245,8 @@ def fused_planes(lefts, rights, *, sides, L: int, groups, mgm: int,
                                               kappa=kappa, fold=g == 0)):
             wavefront(lefts, rights, part, accumulate=k > 0, L=L, mgm=mgm,
                       mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
-                      use_fh=use_fh, w8=w8, **kw)
+                      use_fh=use_fh, w8=w8, lo_px=lo_px, hi_px=hi_px,
+                      fh_restrict=fh_restrict, npair=npair, **kw)
     return vol, nspaces
 
 
@@ -255,97 +261,157 @@ def assemble_groups(vol, *, nspaces: int, N: int):
     return total
 
 
-def assemble_swta(lsum, *, sides, L: int, fix_overcount: bool):
+def assemble_swta(lsum, s_lo=None, s_hi=None, *, sides, L: int, ndir: int,
+                  fix_overcount: bool, lo_px=None, hi_px=None):
     """S assembly + WTA from the fold-included sum of the aggregated
-    volumes, for constant per-side windows (fused.py:675-702).
-    Returns (S, disp, cost)."""
-    lab = torch.arange(L, device=lsum.device)
-    in_cc = torch.stack([(lab >= lo) & (lab <= hi)
-                         for _, lo, hi in sides])[:, None, None, :]
+    volumes (fused.py:675-702).  The CC window is each side's constant
+    one (`sides`) or, with lo_px/hi_px, each pixel's; the S window is
+    s_lo/s_hi ((N, H, W) int32), or the CC window when None.  Returns
+    (S, disp, cost)."""
+    if lo_px is not None:
+        in_cc = window_mask(lo_px, hi_px, L)       # (N, H, W, L)
+    else:
+        lab = torch.arange(L, device=lsum.device)
+        in_cc = torch.stack([(lab >= lo) & (lab <= hi)
+                             for _, lo, hi in sides])[:, None, None, :]
     # 0 - (NDIR-1)*INFINITY outside the CC window, as the dense solver
-    # computes it (leftover passes mean ndir > 8, so -inf)
-    outside = -float("inf") if fix_overcount else 0.0
+    # computes it: -inf, or NaN (0 * inf) at ndir 1
+    if fix_overcount:
+        outside = -float("inf") if ndir > 1 else float("nan")
+    else:
+        outside = 0.0
     s_raw = torch.where(in_cc, lsum, outside)
+    in_s = in_cc if s_lo is None else window_mask(s_lo, s_hi, L)
     gmin = torch.tensor([g for g, _, _ in sides], dtype=torch.int32)
-    return window_wta(s_raw, in_cc, gmin)
+    return window_wta(s_raw, in_s, gmin)
 
 
-def side_images(u_p, v_p, *, N: int, mode: str):
-    """(lefts, rights): the left and right image of each of the N sides
-    (side n >= 1 swaps them), (N, H, W, nch), as K1 takes them: BT's
-    [I, Imin, Imax] blocks, built once an image (fused.py:560-562), the
-    others as they are."""
+def side_images(ups, vps, *, nsides: int, mode: str):
+    """(lefts, rights): the left and right image of each side of each
+    pair (side 1 swaps them), (npair * nsides, H, W, nch) pair-major, as
+    K1 takes them: BT's [I, Imin, Imax] blocks, built once an image
+    (fused.py:560-562), the others as they are.  ups/vps:
+    (npair, H, W, nch) stacks."""
     if mode in ("btad", "btsd"):
-        u_p, v_p = (torch.cat([a, *_bt_aux(a)], -1) for a in (u_p, v_p))
-    return (torch.stack([u_p, v_p][:N]).contiguous(),
-            torch.stack([v_p, u_p][:N]).contiguous())
+        ups, vps = (torch.cat([a, *_bt_aux_batch(a)], -1) for a in (ups, vps))
+    pairs = torch.stack([ups, vps], 1)        # (npair, 2, H, W, nch)
+    lefts = pairs[:, :nsides]
+    rights = pairs.flip(1)[:, :nsides]
+    return (lefts.flatten(0, 1).contiguous(),
+            rights.flatten(0, 1).contiguous())
 
 
-def _dense_cc(u_p, v_p, *, sides, L: int, mode: str, trunc_dist: float):
-    """(N, H, W, L) dense cost volumes of each side (through K8), for the
-    leftover passes (fused.py:621-639), from the preprocessed images
-    (build_cost_volume makes BT's blocks itself)."""
-    H, W, _ = u_p.shape
-    full = dict(dtype=torch.int32, device=u_p.device)
-    return torch.stack([build_cost_volume(
-        *((u_p, v_p) if n == 0 else (v_p, u_p)),
-        torch.full((H, W), lo, **full), torch.full((H, W), hi, **full),
-        gmin, distance=mode, L=L, trunc_dist=trunc_dist)
-        for n, (gmin, lo, hi) in enumerate(sides)])
+def _bt_aux_batch(a):
+    """_bt_aux of every image of an (npair, H, W, nch) stack."""
+    aux = [_bt_aux(x) for x in a]
+    return tuple(torch.stack([x[j] for x in aux]) for j in range(2))
 
 
-def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, w8=None, *,
-                    sides, L: int, ndir: int, mgm: int, p1: float,
-                    p2: float, mode: str, trunc_dist: float,
-                    fix_overcount: bool, use_fh: bool = False,
-                    want_taps: bool = False):
-    """One MGM solve from preprocessed (H, W, nch) images, costs fused
-    into the recursion (the JAX solve with constant windows and
-    want_S False or "taps").  Side n >= 1 (the LR check's right solve)
-    swaps the images.  Without leftover passes the spaces go straight
-    to K2's WTA (and taps); with them the sum is materialised, the
-    knight passes are added from the dense path, S is assembled and the
-    taps gathered from it (fused.py:582-672).
+def _dense_cc(ups, vps, *, sides, L: int, mode: str, trunc_dist: float,
+              lo_px=None, hi_px=None):
+    """(N, H, W, L) dense cost volumes of each side of each pair
+    (through K8), for the leftover passes (fused.py:621-639), from the
+    (npair, H, W, nch) preprocessed images (build_cost_volume makes BT's
+    blocks itself), over each side's constant window or each pixel's
+    (lo_px/hi_px, (N, H, W))."""
+    _, H, W, _ = ups.shape
+    full = dict(dtype=torch.int32, device=ups.device)
+    ns = len(sides)
+    out = []
+    for n in range(ups.shape[0] * ns):
+        k, sd = divmod(n, ns)
+        gmin, lo, hi = sides[sd]
+        a, b = (ups[k], vps[k]) if sd == 0 else (vps[k], ups[k])
+        if lo_px is not None:
+            lo_a, hi_a = lo_px[n], hi_px[n]
+        else:
+            lo_a, hi_a = torch.full((H, W), lo, **full), torch.full(
+                (H, W), hi, **full)
+        out.append(build_cost_volume(a, b, lo_a, hi_a, gmin, distance=mode,
+                                     L=L, trunc_dist=trunc_dist))
+    return torch.stack(out)
 
-    u_p, v_p: float32 images, int32 census words for mode "census".
-      Costs truncate at trunc_dist * nch with nch = u_p.shape[-1] (the
-      census word count), before BT's [I, Imin, Imax] blocks are built.
+
+def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, w8=None,
+                    s_lo=None, s_hi=None, *, sides, L: int, ndir: int,
+                    mgm: int, p1: float, p2: float, mode: str,
+                    trunc_dist: float, fix_overcount: bool,
+                    use_fh: bool = False, want_taps: bool = False,
+                    lo_px=None, hi_px=None):
+    """One MGM solve from preprocessed images, costs fused into the
+    recursion (the JAX solve with want_S False or "taps").  Side 1 of a
+    pair (the LR check's right solve) swaps the images.
+
+    u_p, v_p: (H, W, nch) float32 images (int32 census words for mode
+      "census"), or (K, H, W, nch) stacks of K pairs, solved in one
+      launch set (K1's pair axis).  Costs truncate at trunc_dist * nch
+      with nch = u_p.shape[-1] (the census word count), before BT's
+      [I, Imin, Imax] blocks are built.
     w8: (N, H, W, 8) float32 edge weights of each side, or None.
-    sides: (gmin, lo, hi) ints per side.
+    sides: (gmin, lo, hi) ints per side, N = K * n_sides entries,
+      pair-major, every pair's the same (JAX's batched layout).
+    s_lo/s_hi: (N, H, W) int32 S/WTA windows (TSGM_ITER tightens
+      them), or None: the CC windows.
+    lo_px/hi_px: (N, H, W) int32 per-pixel recursion windows (-m/-M),
+      or None: the constant windows of `sides`.
+    With constant windows (s_lo and lo_px None) and no leftover passes
+    the spaces go straight to K2's WTA (and taps); otherwise the sum is
+    materialised (K1 folds kappa*CC when there are no leftover passes),
+    the knight passes are added from the dense path, S is assembled
+    and the taps gathered from it (fused.py:566-672).
     Returns (taps, disp, cost): disp and cost (N, H, W) float32 on the
     images' device, taps (N, H, 4, W) with `want_taps`, else None."""
-    if u_p.ndim != 3:
-        raise NotImplementedError("batched pairs: ROADMAP queue 1 item 8")
+    ups, vps = (u_p, v_p) if u_p.ndim == 4 else (u_p[None], v_p[None])
+    npair = ups.shape[0]
     N = len(sides)
-    tmax = trunc_dist * u_p.shape[-1]
-    lefts, rights = side_images(u_p, v_p, N=N, mode=mode)
+    ns = N // npair
+    pair_sides = tuple(sides[:ns])
+    if ns < 1 or tuple(sides) != pair_sides * npair:
+        raise ValueError(f"sides: {npair} pairs need one table of sides "
+                         f"repeated pair by pair, got {sides}")
+    tmax = trunc_dist * ups.shape[-1]
+    lefts, rights = side_images(ups, vps, nsides=ns, mode=mode)
     if w8 is not None:
         w8 = w8.contiguous()
     groups, leftover = split_passes(ndir, mgm)
     kappa = -float(ndir - 1) if fix_overcount else 0.0
+    per_pixel = lo_px is not None
+    if per_pixel:
+        lo_px, hi_px = lo_px.contiguous(), hi_px.contiguous()
+    use_weights = w8 is not None
+    # K1's FH window restriction follows aggregate()'s rule: mgm 2
+    # unweighted uses the full-axis min-conv (fused.py:571-572)
+    fh_restrict = (use_fh and per_pixel
+                   and not (mgm == 2 and not use_weights))
     # with leftover passes the overcount folds on the dense volume
     # (fused.py:619, 647)
     vol, nspaces = fused_planes(
-        lefts, rights, sides=sides, L=L, groups=groups, mgm=mgm, p1=p1,
-        p2=p2, mode=mode, tmax=tmax, kappa=0.0 if leftover else kappa,
-        use_fh=use_fh, w8=w8)
+        lefts, rights, sides=pair_sides, L=L, groups=groups, mgm=mgm,
+        p1=p1, p2=p2, mode=mode, tmax=tmax,
+        kappa=0.0 if leftover else kappa, use_fh=use_fh, w8=w8,
+        lo_px=lo_px, hi_px=hi_px, fh_restrict=fh_restrict, npair=npair)
     del lefts, rights
-    if not leftover:
-        res = cuda_fused.wta(vol, nspaces=nspaces, sides=sides,
-                             want_taps=want_taps)
+    if not leftover and s_lo is None and not per_pixel:
+        res = cuda_fused.wta(vol, nspaces=nspaces, sides=pair_sides,
+                             npair=npair, want_taps=want_taps)
         return (res[2] if want_taps else None,) + res[:2]
     lsum = assemble_groups(vol, nspaces=nspaces, N=N)
     del vol
-    cc = _dense_cc(u_p, v_p, sides=sides, L=L, mode=mode,
-                   trunc_dist=trunc_dist)
-    part = aggregate(cc, w8, p1=p1, p2=p2, ndir=ndir, mgm=mgm,
-                     use_fh=use_fh, use_weights=w8 is not None,
-                     pids=tuple(leftover))
-    if fix_overcount:
-        part = part + kappa * cc
-    del cc
-    S, disp, cost = assemble_swta(lsum + part, sides=sides, L=L,
-                                  fix_overcount=fix_overcount)
+    if leftover:
+        cc = _dense_cc(ups, vps, sides=pair_sides, L=L, mode=mode,
+                       trunc_dist=trunc_dist, lo_px=lo_px, hi_px=hi_px)
+        part = aggregate(cc, w8, lo_px, hi_px, p1=p1, p2=p2, ndir=ndir,
+                         mgm=mgm, use_fh=use_fh, use_weights=use_weights,
+                         fh_restrict=use_fh and per_pixel,
+                         pids=tuple(leftover))
+        if fix_overcount:
+            part = part + kappa * cc
+        del cc
+        lsum = lsum + part
+        del part
+    S, disp, cost = assemble_swta(lsum, s_lo, s_hi, sides=sides, L=L,
+                                  ndir=ndir, fix_overcount=fix_overcount,
+                                  lo_px=lo_px, hi_px=hi_px)
     if not want_taps:
         return None, disp, cost
     gmin = torch.tensor([g for g, _, _ in sides], dtype=torch.int32)

@@ -1,6 +1,6 @@
-"""Post-processing: NaN-aware median, LR consistency, backflow warp
-(mgm.cc:68-91, :432-443 and img_tools.h:203-238; mirror of
-mgm_tpu/ops/post.py).
+"""Post-processing: NaN-aware median, LR consistency, backflow warp and
+the TSGM_ITER window update (mgm.cc:68-91, :120-158, :432-443 and
+img_tools.h:203-238; mirror of mgm_tpu/ops/post.py).
 
 Where the JAX code selects with one-hot sums (a TPU gather workaround),
 this module uses torch.gather: exactly one term of each JAX sum is
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import INF, shift_fill
+from .common import INF, shift_edge, shift_fill
 
 
 def median_filter(img: torch.Tensor, *, radius: int) -> torch.Tensor:
@@ -49,6 +49,34 @@ def leftright_test(d_left: torch.Tensor, d_right: torch.Tensor,
     tau32 = torch.tensor(tau, dtype=torch.float32, device=d_left.device)
     bad = (rx - x).abs() > tau32
     return torch.where(ok & ~bad, d_left, float("nan"))
+
+
+def update_dmin_dmax(disp: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                     *, slack: int = 3, radius: int = 2):
+    """Per-pixel disparity range tightening between iterations
+    (mgm.cc:120-158): window min/max of the previous solution +- slack
+    with clamp-to-edge windows; non-finite pixels contribute the global
+    finite min/max.  disp, lo, hi: (..., H, W) float32.  Returns float
+    (lo2, hi2, gmin, gmax), gmin/gmax keeping the (..., 1, 1) axes."""
+    finite = torch.isfinite(disp)
+    any_finite = finite.any(-1, keepdim=True).any(-2, keepdim=True)
+    gmin = torch.where(finite, disp, INF).amin((-2, -1), keepdim=True)
+    gmax = torch.where(finite, disp, -INF).amax((-2, -1), keepdim=True)
+    a_lo = torch.where(finite, disp, gmin)
+    a_hi = torch.where(finite, disp, gmax)
+    for axis in (-2, -1):
+        mn, mx = a_lo, a_hi
+        for s in range(1, radius + 1):
+            mn = torch.minimum(mn, torch.minimum(shift_edge(a_lo, s, axis),
+                                                 shift_edge(a_lo, -s, axis)))
+            mx = torch.maximum(mx, torch.maximum(shift_edge(a_hi, s, axis),
+                                                 shift_edge(a_hi, -s, axis)))
+        a_lo, a_hi = mn, mx
+    lo2 = a_lo - slack
+    hi2 = a_hi + slack
+    upd = torch.isfinite(lo2) & any_finite
+    return (torch.where(upd, lo2, lo), torch.where(upd, hi2, hi), gmin,
+            gmax)
 
 
 def backflow(disp: torch.Tensor, v: torch.Tensor,

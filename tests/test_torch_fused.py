@@ -14,6 +14,10 @@ TSGM = 1 every order is exact (min-plus over integers and halves:
 integer images, census costs of two words, BT's half samples, integer
 P1): bitwise.  K2's subpixel taps equal mgm_tpu's taps_from_S bitwise.
 
+Batched pairs equal each pair's own solve bitwise; per-pixel windows
+(and TSGM_ITER's S windows) hold against the dense solver on volumes
+built with the same windows.
+
 The kernels against their plain versions are in test_torch_kernels.py,
 which needs no JAX and so runs on a machine with a card.
 """
@@ -191,7 +195,7 @@ def test_taps_match_taps_from_S(rng, ndir, mgm, fh, mode):
         use_fh=fh)
     S, d3, _ = tfused.assemble_swta(
         tfused.assemble_groups(vol, nspaces=nspaces, N=N), sides=sides,
-        L=L, fix_overcount=True)
+        L=L, ndir=ndir, fix_overcount=True)
     assert_bitwise(d3.numpy(), disp.numpy())
     gm = jnp.asarray([g for g, _, _ in sides], jnp.int32)
     want = jtaps_from_S(jnp.asarray(S.numpy()), jnp.asarray(disp.numpy()), gm)
@@ -199,14 +203,124 @@ def test_taps_match_taps_from_S(rng, ndir, mgm, fh, mode):
     assert_bitwise(taps.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("bad", [dict(batch=2)],
-                         ids=lambda c: str(sorted(c.items())))
-def test_unsupported_raise(bad):
-    """What the port leaves out raises, naming the ROADMAP item."""
-    bad = dict(bad)
-    u = torch.zeros((bad.pop("batch"), 4, 5, 1) if "batch" in bad
-                    else (4, 5, 1))
-    kw = dict(sides=((-2, 0, 4),), L=5, ndir=4, mgm=2, p1=8.0, p2=32.0,
-              mode="ad", trunc_dist=float("inf"), fix_overcount=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfused.mgm_solve_fused(u, u, **{**kw, **bad})
+# batched pairs: cfg1's schedule, the V group with FH and weights, and
+# the knight passes (the dense path batched too), with and without the
+# LR check
+BATCH_CASES = [dict(ndir=4, mgm=2), dict(ndir=8, mgm=3, fh=True, weights=True),
+               dict(ndir=16, mgm=1), dict(ndir=4, mgm=1, lr=False)]
+
+
+@pytest.mark.parametrize("case", BATCH_CASES,
+                         ids=[str(sorted(c.items())) for c in BATCH_CASES])
+def test_batched_solve_equals_per_pair(rng, case):
+    """K pairs in one solve (K1's and K2's pair axis, plain versions)
+    give each pair's own solve bitwise, taps included."""
+    K, H, W, C = 3, 12, 17, 2
+    pairs = [_pair(rng, H, W, C) for _ in range(K)]
+    L, sides = _sides(-5, 3, case.get("lr", True))
+    ns = len(sides)
+    w8 = (_weights(rng, K * ns, H, W) if case.get("weights")
+          else None)
+    kw = dict(L=L, ndir=case["ndir"], mgm=case["mgm"], p1=8.0 * C,
+              p2=32.0 * C, mode="ad", trunc_dist=float("inf"),
+              fix_overcount=True, use_fh=case.get("fh", False),
+              want_taps=True)
+    got = tfused.mgm_solve_fused(
+        torch.from_numpy(np.stack([p[0] for p in pairs])),
+        torch.from_numpy(np.stack([p[1] for p in pairs])),
+        None if w8 is None else torch.from_numpy(w8), sides=sides * K, **kw)
+    for k, (u, v) in enumerate(pairs):
+        want = tfused.mgm_solve_fused(
+            torch.from_numpy(u), torch.from_numpy(v),
+            None if w8 is None else torch.from_numpy(w8[k * ns:(k + 1) * ns]),
+            sides=sides, **kw)
+        for g, w in zip(got, want):
+            assert_bitwise(g[k * ns:(k + 1) * ns].numpy(), w.numpy())
+
+
+def _pp_windows(rng, N, H, W, L):
+    """(N, H, W) int32 label windows: random, some one label wide, some
+    empty after truncation (lo > hi)."""
+    lo = rng.integers(0, L - 1, (N, H, W)).astype(np.int32)
+    hi = np.minimum(lo + rng.integers(0, 5, (N, H, W)), L - 1).astype(
+        np.int32)
+    hi[:, 0, :3] = lo[:, 0, :3] - 1
+    return lo, hi
+
+
+# per-pixel windows through the fused solve: cfg1 at TSGM 1 (bitwise),
+# FH at TSGM 1 and 3 (fh_restrict on) and unweighted FH at TSGM 2 (off
+# by aggregate()'s rule), the knight passes (windows in the dense
+# leftover path), and TSGM_ITER's S windows
+PP_CASES = [dict(ndir=4, mgm=1), dict(ndir=4, mgm=1, fh=True),
+            dict(ndir=8, mgm=3, fh=True), dict(ndir=4, mgm=2, fh=True),
+            dict(ndir=16, mgm=1), dict(ndir=4, mgm=1, s_win=True)]
+
+
+@pytest.mark.parametrize("case", PP_CASES,
+                         ids=[str(sorted(c.items())) for c in PP_CASES])
+def test_per_pixel_solve_matches_dense(rng, case):
+    """mgm_solve_fused with lo_px/hi_px (and s_lo/s_hi) against
+    mgm_tpu's dense solver on the volume built with the same windows:
+    bitwise at TSGM 1, the module docstring's rule otherwise."""
+    ndir, mgm, fh = case["ndir"], case["mgm"], case.get("fh", False)
+    H, W, C = 14, 21, 2
+    u, v = _pair(rng, H, W, C)
+    L, sides = _sides(-6, 4, True)
+    lo, hi = _pp_windows(rng, 2, H, W, L)
+    s_lo, s_hi = lo, hi
+    if case.get("s_win"):
+        s_lo = np.maximum(lo, rng.integers(0, 4, lo.shape)).astype(np.int32)
+        s_hi = np.minimum(hi, rng.integers(6, L, hi.shape)).astype(np.int32)
+    p1, p2 = 8.0 * C, 32.0 * C
+    cc = jnp.stack([build_cost_volume(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(lo[n]),
+        jnp.asarray(hi[n]), g, distance="ad", L=L, trunc_dist=float("inf"),
+        backend="xla") for n, ((a, b), (g, _, _)) in enumerate(
+            zip(((u, v), (v, u)), sides))])
+    gm = jnp.asarray([g for g, _, _ in sides], jnp.int32)
+    S0, d0, c0 = (np.asarray(x) for x in mgm_solve(
+        cc, None, jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(s_lo),
+        jnp.asarray(s_hi), gm, p1=p1, p2=p2, ndir=ndir, mgm=mgm, use_fh=fh,
+        use_weights=False, per_pixel=True, fix_overcount=True))
+    t = torch.from_numpy
+    _, d1, c1 = tfused.mgm_solve_fused(
+        t(u), t(v), None, t(s_lo), t(s_hi),
+        sides=tuple((g, 0, L - 1) for g, _, _ in sides), L=L, ndir=ndir,
+        mgm=mgm, p1=p1, p2=p2, mode="ad", trunc_dist=float("inf"),
+        fix_overcount=True, use_fh=fh, lo_px=t(lo), hi_px=t(hi))
+    d1, c1 = d1.numpy(), c1.numpy()
+    if mgm == 1:
+        assert_bitwise(d1, d0)
+        assert_bitwise(c1, c0)
+        return
+    np.testing.assert_array_equal(np.isfinite(c1), np.isfinite(c0))
+    scale = max(1.0, np.abs(S0[np.isfinite(S0)]).max())
+    np.testing.assert_allclose(c1, c0, atol=3e-5 * scale, rtol=1e-5,
+                               equal_nan=True)
+    for n, y, x in np.argwhere(d0 != d1):
+        la, lb = int(d0[n, y, x]) - sides[n][0], int(d1[n, y, x]) - sides[n][0]
+        assert abs(S0[n, y, x, la] - S0[n, y, x, lb]) <= 3e-5 * scale
+
+
+@pytest.mark.parametrize("ndir", [1, 4])
+def test_assemble_swta_matches(rng, ndir):
+    """The S assembly against mgm_tpu's with per-pixel CC and S
+    windows: outside the CC window NaN at ndir 1 (0 * inf), -inf
+    otherwise, then +inf outside the S window; bitwise."""
+    N, H, W, L = 2, 5, 7, 9
+    lsum = rng.uniform(-50, 50, (N, H, W, L)).astype(np.float32)
+    lo, hi = _pp_windows(rng, N, H, W, L)
+    s_lo, s_hi = np.maximum(lo - 1, 0), np.minimum(hi + 1, L - 1)
+    sides = ((-3, 0, L - 1), (-5, 0, L - 1))
+    t = torch.from_numpy
+    got = tfused.assemble_swta(t(lsum), t(s_lo), t(s_hi), sides=sides, L=L,
+                               ndir=ndir, fix_overcount=True, lo_px=t(lo),
+                               hi_px=t(hi))
+    want = jfused.assemble_swta(
+        jnp.asarray(lsum), jnp.asarray(s_lo), jnp.asarray(s_hi),
+        sides=sides, L=L, ndir=ndir, fix_overcount=True,
+        lo_px=jnp.asarray(lo), hi_px=jnp.asarray(hi))
+    for g, w in zip(got, want):
+        assert_bitwise(g.numpy(), np.asarray(w))
+    assert np.isnan(got[0].numpy()).any() == (ndir == 1)

@@ -55,14 +55,18 @@ def cuda():
 
 
 def _solve_planes(fn, u, v, *, ndir, mgm, sides, L, device, mode="ad",
-                  group=None, use_fh=False, w8=None, tmax=float("inf")):
+                  group=None, use_fh=False, w8=None, tmax=float("inf"),
+                  lo_px=None, hi_px=None, fh_restrict=False):
     """Every launch of a solve's fused groups (or of its group number
     `group` alone) through `fn` (the kernel or its plain version) on
-    the images as K1 takes them; returns the volume and its space
-    count."""
+    the images as K1 takes them; u, v: one pair (H, W, nch) or a stack
+    of pairs (K, H, W, nch).  Returns the volume and its space count."""
     n = len(sides)
-    lefts = torch.from_numpy(np.stack([u, v][:n])).to(device)
-    rights = torch.from_numpy(np.stack([v, u][:n])).to(device)
+    us, vs = (u, v) if u.ndim == 4 else (u[None], v[None])
+    lefts = torch.from_numpy(np.concatenate(
+        [np.stack([a, b][:n]) for a, b in zip(us, vs)])).to(device)
+    rights = torch.from_numpy(np.concatenate(
+        [np.stack([b, a][:n]) for a, b in zip(us, vs)])).to(device)
     C = 3   # P1 and P2 of a three-channel image
     groups = tfused.split_passes(ndir, mgm)[0]
     if group is not None:
@@ -72,6 +76,11 @@ def _solve_planes(fn, u, v, *, ndir, mgm, sides, L, device, mode="ad",
                                p2=32.0 * C, mode=mode, tmax=tmax,
                                kappa=-float(ndir - 1), use_fh=use_fh,
                                w8=None if w8 is None else w8.to(device),
+                               lo_px=None if lo_px is None
+                               else lo_px.to(device),
+                               hi_px=None if hi_px is None
+                               else hi_px.to(device),
+                               fh_restrict=fh_restrict, npair=len(us),
                                wavefront=fn)
 
 
@@ -246,6 +255,126 @@ def test_wta_taps_keep_nan(cuda):
     for a, b in zip(got, want):
         assert_bitwise(a.cpu().numpy(), b.cpu().numpy())
     assert np.isnan(got[2].cpu().numpy()).any()
+
+
+def _pp_windows(rng, N, H, W, L):
+    """(N, H, W) int32 per-pixel label windows: random, some one label
+    wide, some empty (lo > hi)."""
+    lo = rng.integers(0, L - 1, (N, H, W)).astype(np.int32)
+    hi = np.minimum(lo + rng.integers(0, 6, (N, H, W)), L - 1).astype(
+        np.int32)
+    hi[:, 0, :3] = lo[:, 0, :3] - 1
+    return torch.from_numpy(lo), torch.from_numpy(hi)
+
+
+# K1 under per-pixel windows: SGM at TSGM 2 (A/B), census + FH at
+# TSGM 3 (A/B and V, fh_restrict on), FH at TSGM 2 unweighted
+# (fh_restrict off by aggregate()'s rule) and weighted (on)
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndir,mgm,mode,use_fh,weights,restrict", [
+    (4, 2, "ad", False, False, False), (8, 3, "census", True, False, True),
+    (4, 2, "ad", True, False, False), (4, 2, "ad", True, True, True)])
+@pytest.mark.parametrize("L", [6, 151])
+def test_per_pixel_windows_match_plain(cuda, ndir, mgm, mode, use_fh, weights,
+                                       restrict, L):
+    rng = np.random.default_rng(L + ndir)
+    u, v = _mode_images(rng, mode, 17, 29)
+    L, sides = _sides(-L + 5, 4, True)
+    lo, hi = _pp_windows(rng, 2, 17, 29, L)
+    w8 = (torch.from_numpy(np.where(rng.random((2, 17, 29, 8)) < 0.5, 0.25,
+                                    1.0).astype(np.float32))
+          if weights else None)
+    kw = dict(ndir=ndir, mgm=mgm, sides=tuple((g, 0, L - 1) for g, _, _
+                                              in sides),
+              L=L, device=cuda, mode=mode, use_fh=use_fh, w8=w8, tmax=40.0,
+              lo_px=lo, hi_px=hi, fh_restrict=restrict)
+    got, _ = _solve_planes(cuda_fused.fused_wavefront, u, v, **kw)
+    want, _ = _solve_planes(cuda_fused.fused_wavefront_plain, u, v, **kw)
+    torch.cuda.synchronize()
+    assert_bitwise(got.cpu().numpy(), want.cpu().numpy())
+    # the windows bite: +inf outside them, and an empty window's
+    # all-invalid costs are 0, not +inf
+    assert np.isinf(got.cpu().numpy()).any()
+
+
+# batched pairs: cfg1's A/B group, the V group with FH and weights, and
+# the parity spaces, with and without the LR check
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndir,mgm,use_fh,weights,lr", [
+    (4, 2, False, False, True), (8, 3, True, True, True),
+    (8, 4, False, False, False)])
+def test_batched_kernels_equal_per_pair(cuda, ndir, mgm, use_fh, weights,
+                                        lr):
+    """K1 and K2 (+ taps) over K = 3 pairs in one launch each equal the
+    per-pair launches bitwise; K1's launch count is one pair's."""
+    K, H, W = 3, 17, 29
+    rng = np.random.default_rng(ndir + mgm)
+    pairs = [_pair(rng, H, W, 3) for _ in range(K)]
+    us, vs = (np.stack([p[i] for p in pairs]) for i in (0, 1))
+    L, sides = _sides(-20, 4, lr)
+    ns = len(sides)
+    w8 = (torch.from_numpy(np.where(rng.random((K * ns, H, W, 8)) < 0.5,
+                                    0.25, 1.0).astype(np.float32))
+          if weights else None)
+    kw = dict(ndir=ndir, mgm=mgm, sides=sides, L=L, device=cuda,
+              use_fh=use_fh)
+    n1 = cuda_fused.fused_wavefront.launches
+    got, nsp = _solve_planes(cuda_fused.fused_wavefront, us, vs, w8=w8, **kw)
+    one_pair = cuda_fused.fused_wavefront.launches - n1
+    res = cuda_fused.wta(got, nspaces=nsp, sides=sides, npair=K,
+                         want_taps=True)
+    torch.cuda.synchronize()
+    for k in range(K):
+        n1 = cuda_fused.fused_wavefront.launches
+        want, _ = _solve_planes(
+            cuda_fused.fused_wavefront, us[k], vs[k],
+            w8=None if w8 is None else w8[k * ns:(k + 1) * ns], **kw)
+        assert cuda_fused.fused_wavefront.launches - n1 == one_pair
+        ref = cuda_fused.wta(want, nspaces=nsp, sides=sides, want_taps=True)
+        torch.cuda.synchronize()
+        gv = got.view(nsp, K, ns, H, W, L)[:, k].reshape(nsp * ns, H, W, L)
+        assert_bitwise(gv.cpu().numpy(), want.cpu().numpy())
+        for a, b in zip(res, ref):
+            assert_bitwise(a[k * ns:(k + 1) * ns].cpu().numpy(),
+                           b.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_assemble_swta_ndir1_keeps_nan(cuda):
+    """At ndir 1 with the overcount fix, S is NaN (0 * inf) where the S
+    window reaches outside the CC window, on the card as on the CPU."""
+    rng = np.random.default_rng(9)
+    lsum = torch.from_numpy(rng.uniform(-9, 9, (2, 5, 7, 9)).astype(
+        np.float32))
+    lo, hi = _pp_windows(rng, 2, 5, 7, 9)
+    s_lo, s_hi = (lo - 1).clamp(min=0), (hi + 1).clamp(max=8)
+    sides = ((-3, 0, 8), (-5, 0, 8))
+    kw = dict(sides=sides, L=9, ndir=1, fix_overcount=True)
+    got = tfused.assemble_swta(lsum.to(cuda), s_lo.to(cuda), s_hi.to(cuda),
+                               lo_px=lo.to(cuda), hi_px=hi.to(cuda), **kw)
+    want = tfused.assemble_swta(lsum, s_lo, s_hi, lo_px=lo, hi_px=hi, **kw)
+    for a, b in zip(got, want):
+        assert_bitwise(a.cpu().numpy(), b.numpy())
+    assert np.isnan(got[0].cpu().numpy()).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("fast_ad", dict(mgm=2)), ("census_tl", {}),
+    ("fast_ad", dict(iterations=3)), ("ncc", dict(iterations=2))])
+def test_item6_pipeline_cuda_equals_cpu(cuda, name, kw):
+    """Per-pixel windows (and TSGM_ITER) through compute_disparity on a
+    crop: CUDA equal to the CPU run for every output."""
+    u, v, d = synthetic_pair(24, 40, -8, 4, seed=3)
+    cfg = get_preset(name, dmin=-8, dmax=4, test_lr=True, **kw)
+    win = {}
+    if cfg.iterations == 1:
+        win = dict(dmin_img=(d - 3).astype(np.float32),
+                   dmax_img=(d + 2).astype(np.float32))
+    got = compute_disparity(u, v, cfg, device=cuda, **win)
+    want = compute_disparity(u, v, cfg, device="cpu", **win)
+    for k in got:
+        assert_bitwise(got[k], want[k])
 
 
 @pytest.mark.cuda

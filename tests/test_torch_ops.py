@@ -127,3 +127,79 @@ def test_correlate2d_scan_order(rng):
                    jpre.correlate2d(jnp.asarray(img), k))
     assert_bitwise(tpre.sobelx(torch.from_numpy(img)).numpy(),
                    jpre.sobelx(jnp.asarray(img)))
+
+
+@pytest.mark.parametrize("nan_frac", [0.0, 0.2, 1.0])
+def test_update_dmin_dmax(rng, nan_frac):
+    """TSGM_ITER's window update, bitwise: non-finite pixels take the
+    global finite min/max; an all-NaN image keeps its windows."""
+    d = _with_nans(rng, rng.uniform(-20, 12, (2, 9, 13)).astype(np.float32),
+                   nan_frac)
+    d[1, 0, 0] = np.inf
+    lo = rng.uniform(-30, -20, d.shape).astype(np.float32)
+    hi = rng.uniform(12, 20, d.shape).astype(np.float32)
+    got = tpost.update_dmin_dmax(*(torch.from_numpy(a) for a in (d, lo, hi)))
+    want = jpost.update_dmin_dmax(*(jnp.asarray(a) for a in (d, lo, hi)))
+    for g, w in zip(got, want):
+        assert_bitwise(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("etype", [0, 1, 2])
+def test_evaluate_energy_4connected(rng, etype):
+    """The TSGM_DEBUG energies against mgm_tpu's: quarter-pixel
+    disparities (some NaN, inf, out of window or out of the label
+    axis), so every pairwise term is exact up to L2's square root; the
+    per-pixel image is bitwise equal, as are the totals of types 0 and
+    1 (exact sums), type 2's within 1e-6 relative (summation order)."""
+    from mgm_tpu.ops.energy import evaluate_energy_4connected as jeval
+    from mgm_tpu_torch.ops.energy import evaluate_energy_4connected as teval
+
+    H, W, L, gmin = 9, 13, 12, -5
+    d = (rng.integers(-20, 30, (H, W)) / 4.0).astype(np.float32)
+    d = _with_nans(rng, d, 0.1)
+    d[0, 1], d[3, 3] = np.inf, -np.inf
+    d[4, 4], d[5, 6] = gmin - 3.0, gmin + L + 1.0   # outside the labels
+    cc = rng.integers(0, 40, (H, W, L)).astype(np.float32)
+    lo = rng.integers(0, 3, (H, W)).astype(np.int32)
+    hi = rng.integers(8, L, (H, W)).astype(np.int32)
+    cc = np.where((np.arange(L) >= lo[..., None])
+                  & (np.arange(L) <= hi[..., None]), cc, np.inf)
+    kw = dict(p1=8.0 * 3, p2=32.0 * 3, etype=etype)
+    e_t, img_t = teval(*(torch.from_numpy(a) for a in (d, cc, lo, hi)),
+                       gmin, **kw)
+    e_j, img_j = jeval(*(jnp.asarray(a) for a in (d, cc, lo, hi)),
+                       jnp.int32(gmin), **kw)
+    assert_bitwise(img_t.numpy(), np.asarray(img_j))
+    # with every data term finite the totals are finite too
+    fin = np.isfinite(np.asarray(img_j))
+    e_t2, _ = teval(torch.from_numpy(np.where(fin, d, 2.0).astype(
+        np.float32)), *(torch.from_numpy(a) for a in (cc, lo, hi)), gmin, **kw)
+    e_j2, _ = jeval(jnp.asarray(np.where(fin, d, 2.0).astype(np.float32)),
+                    *(jnp.asarray(a) for a in (cc, lo, hi)), jnp.int32(gmin),
+                    **kw)
+    for a, b in ((e_t, e_j), (e_t2, e_j2)):
+        if etype == 2:
+            np.testing.assert_allclose(float(a), float(b), rtol=1e-6)
+        else:
+            assert_bitwise(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_write_tiff_without_imaging_packages(tmp_path, monkeypatch, C):
+    """Without the native library, float TIFFs are written by the port's
+    own writer, which needs no imaging package, and read back bit for
+    bit by mgm_tpu's reader."""
+    import sys
+
+    from mgm_tpu.io import read_image
+    from mgm_tpu_torch import io as tio
+
+    rng = np.random.default_rng(C)
+    img = rng.normal(0, 50, (5, 7, C)).astype(np.float32)
+    img[0, 0, 0], img[1, 2, 0] = np.nan, np.inf
+    path = str(tmp_path / "e.tif")
+    with monkeypatch.context() as mp:
+        mp.setattr(tio, "_native", lambda: None)
+        mp.setitem(sys.modules, "imageio.v3", None)   # import fails
+        tio.write_image(path, img)
+    assert_bitwise(read_image(path), img)
