@@ -25,7 +25,11 @@ synthetic data at 700x500, L = 151:
   cfg3_b8     compute_disparity_batch on 8 synthetic satellite pairs
               (279x271x1, the satellite preset over -22..19, LR);
   cfg3_scene  runner.tiled_disparity(tile=512, margin=64, batch=5) on an
-              8x8 mosaic of one satellite pair (2232x2168).
+              8x8 mosaic of one satellite pair (2232x2168);
+  cfg1_mesh2  cfg1 row-sharded over 2 ranks on the one card
+              (compute_disparity(mesh=...): K4 on each band, K2 a
+              band; an emulation of 2 cards, the ranks one after
+              another).
 For each run it prints
   - the host wall time, median of N plain runs;
   - host stage times: the run's stage functions are wrapped with a
@@ -180,6 +184,11 @@ def main(argv=None) -> int:
     mrf_cli.write_problem(f_in, unary, w8)
     del unary, w8
 
+    def _mesh2():
+        from mgm_tpu_torch.parallel import make_mesh
+
+        return make_mesh(devices=["cuda:0"] * 2)
+
     # (name, run, MP*disp per run, stage wraps: (module, attr, label))
     dense = [(agg, "canonical_inputs", "  canonicalise"),
              (wf, "skew", "  K6 skew"), (wf, "wavefront_scan", "  K5 scan"),
@@ -252,6 +261,12 @@ def main(argv=None) -> int:
           (cuda_fused, "wta", "  K2 wta + taps"),
           (post, "median_filter", " median"),
           (stereo, "_leftright", " LR check")]),
+        ("cfg1_mesh2", lambda: stereo.compute_disparity(
+            u, v, cfg1, mesh=_mesh2()), 2 * H * W * L,
+         [(stereo, "_scrub", "upload + scrub"),
+          (stereo, "mgm_solve_fused", "fused solve"),
+          (cuda_fused, "fused_block", "  K4 fused block"),
+          (cuda_fused, "wta", "  K2 wta")]),
         ("mgm_o", lambda: mrf_cli.main([f_in, f_out, "8", "32", "2", "0"]),
          H * W * L,
          [(mrf_cli, "read_problem", "read protocol file"),
@@ -295,10 +310,13 @@ def main(argv=None) -> int:
                 print(f"   {k:<28} {st.ms[k]:9.3f} ms")
         print(f"   {'rest (host, post, fetch)':<28} "
               f"{staged - top_level:9.3f} ms")
-        k1 = sum(ms for k, (ms, _) in by_name.items() if "front_kernel" in k)
+        k1 = sum(ms for k, (ms, _) in by_name.items()
+                 if "front_kernel" in k and "band_front" not in k)
+        k4 = sum(ms for k, (ms, _) in by_name.items() if "band_front" in k)
         report["runs"][name]["k1_front_kernels_ms"] = k1 / args.reps
+        report["runs"][name]["k4_front_kernels_ms"] = k4 / args.reps
         print(f"   K1's front kernels: {k1 / args.reps:.3f} ms of device time "
-              f"a run")
+              f"a run; K4's: {k4 / args.reps:.3f} ms")
         print(f"   profiler: device busy {busy:.4f} of the host wall "
               f"({pwall / args.reps:.3f} ms a run profiled), device window "
               f"{window / args.reps:.3f} ms a run")

@@ -104,6 +104,31 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     batch=5): 25 tiles, bitwise equal to batch=1, the median wall in
     MP*disp/s of scene work (2*H*W*L).
 
+24. K4 (the fused recursion on one rank's band of rows, row sharding)
+    against its plain version over in-process ranks on the one card,
+    the whole sharded recursion held bitwise: the A/B stagger at cfg1's
+    full 700x500, L = 151 over 2 ranks; cfg2's V group and
+    cfg1_tsgm4's PB group (lockstep aprons) on 64-row strips over 2
+    ranks; cfg1 on a 61-row strip over 3 ranks (21 + 21 + 19 rows);
+    each also bitwise equal to K1's unsharded volume; then K4's time
+    for a sharded cfg1 recursion beside its plain version's and its
+    bound;
+25. the sharded path end to end: compute_disparity(mesh=make_mesh(
+    devices=["cuda:0"] * n)) for cfg1 at n = 2 and 4, and cfg2,
+    cfg1_tsgm4 and cfg1_mM at n = 2, every output bitwise equal to the
+    unsharded run's, through K4 and K2 (K1 not launched), the median
+    wall of NEW_REPS runs beside the unsharded one's, in MP*disp/s,
+    and peak memory (n ranks on one card run one after another: an
+    emulation of n cards, not a multi-card measurement);
+26. two processes on the one card (gloo; NCCL refuses two ranks on one
+    GPU, and gloo takes CPU tensors, so the tracks go through host
+    memory): cfg1 through parallel.distributed's
+    compute_disparity_distributed, each process's outputs bitwise
+    equal to the single-process run, and its wall;
+27. with more than one card: the in-process mesh over distinct cards
+    and the NCCL group (one line saying that they were not measured
+    otherwise).
+
 With --data DIR holding fountain23-imL.png and fountain23-imR.png
 (default: the repository's data/), cfg1 also runs on that pair.  The
 last three lines are the per-kernel JSON record, the card's name and
@@ -115,7 +140,9 @@ and read just after (`launches_by_path`): cfg1 (phase 4), cfg1_tsgm4
 cfg3_b32 (phase 22) and cfg3_scene (phase 23) for K1/K2, cfg1_mM and
 cfg1_mM_truth8 (phase 20) for K1, the two mgm_o runs, the NCC run
 (phases 7-8) and ncc_iter3 (phase 21) for K5/K6/K7, full_16dir (phase
-12) for K1, K5-K8; `launches` is their sum.  One K1 or K5 call launches one small
+12) for K1, K5-K8, and the sharded rows (phase 25) for K4 and K2;
+`launches` is their sum.  K4's times and bound are the sharded cfg1
+recursion's over 2 ranks (phase 24).  One K1 or K5 call launches one small
 kernel per wavefront.  K1's and K2's times and bounds are cfg2's
 (phase 15).  `bound_ms` is the larger of the bytes the call must move
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100
@@ -158,7 +185,8 @@ DENSE_CASES = (
 DENSE_KERNELS = ("wavefront_scan", "skew", "unskew")
 FUSED_KERNELS = ("fused_wavefront", "wta")
 CENSUS_WORDS = 2                 # phase 11's packed census words a pixel
-NEW_REPS = 3                     # timed runs of phases 20-23
+NEW_REPS = 3                     # timed runs of phases 20-26
+SHARD_KERNELS = ("fused_block", "wta")
 # cfg3 (the satellite preset): 279x271x1 pairs, disparities -22..19
 SAT_H, SAT_W, SAT_DMIN, SAT_DMAX = 271, 279, -22, 19
 
@@ -248,7 +276,14 @@ def _planes(fn, cfg, inp, group=None):
 
 
 def _k1_bound(cfg, inp, nspaces):
-    """(bound_ms, bound_by) of K1's launches of cfg at inp's shapes: the
+    """(bound_ms, bound_by) of K1's launches of cfg at inp's shapes
+    (_k1_work)."""
+    return _bound(*_k1_work(cfg, inp, nspaces))
+
+
+def _k1_work(cfg, inp, nspaces):
+    """(bytes, float32 operations) of K1's launches of cfg at inp's
+    shapes: the
     volume written forward and read and written backward, the images
     and weights read once; per cell of each fused pass the messages,
     their sum and division and the cost's add, and per cell of each
@@ -270,7 +305,7 @@ def _k1_bound(cfg, inp, nspaces):
     npass = cfg.ndir - len(fused.split_passes(cfg.ndir, mgm)[1])
     ops = (npass * cells * (mgm * 6 + mgm + 1)
            + nspaces * cells * (3 * nch + 2))
-    return _bound(nbytes, ops)
+    return nbytes, ops
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -353,7 +388,8 @@ def _kernels() -> dict:
     from mgm_tpu_torch.ops import wavefront as wf
 
     return {"fused_wavefront": cuda_fused.fused_wavefront,
-            "wta": cuda_fused.wta, "wavefront_scan": wf.wavefront_scan,
+            "wta": cuda_fused.wta, "fused_block": cuda_fused.fused_block,
+            "wavefront_scan": wf.wavefront_scan,
             "skew": wf.skew, "unskew": wf.unskew,
             "pointwise_volume": cuda_cost.pointwise_volume}
 
@@ -679,7 +715,217 @@ def _fronts(groups, R, C):
     return n
 
 
+def _k4_planes(fn, cfg, inp, n, group=None):
+    """The sharded recursion of cfg's fused groups (or group number
+    `group` alone) over n in-process ranks on the card through `fn`
+    (K4 or its plain version), with _k1_inputs' `inp`: ({rank: (r0,
+    volume)}, nspaces)."""
+    from mgm_tpu_torch.ops import fused
+    from mgm_tpu_torch.parallel import make_mesh, sharded_fused_planes
+
+    groups = fused.split_passes(cfg.ndir, cfg.mgm)[0]
+    if group is not None:
+        groups = groups[group:group + 1]
+    kw = dict(inp)
+    return sharded_fused_planes(kw.pop("lefts"), kw.pop("rights"),
+                                mesh=make_mesh(devices=["cuda:0"] * n),
+                                groups=groups, kernel=fn,
+                                kappa=-float(cfg.ndir - 1), **kw)
+
+
+def _k4_check(phase, cases, errs):
+    """K4 against its plain version, the whole sharded recursion, and
+    against K1's unsharded volume, bitwise, for each (label, cfg, pair,
+    ranks, group) case; returns each case's plain time (ms, one run)."""
+    import torch
+    from mgm_tpu_torch.ops import cuda_fused
+
+    plain_ms = []
+    for label, cfg, (u, v), n, group in cases:
+        inp = _k1_inputs(cfg, u, v)
+        got, ns = _k4_planes(cuda_fused.fused_block, cfg, inp, n, group)
+        t, (want, _) = _event_once(lambda: _k4_planes(
+            cuda_fused.fused_block_plain, cfg, inp, n, group))
+        plain_ms.append(t)
+        ref, _ = _planes(cuda_fused.fused_wavefront, cfg, inp, group)
+        err, rows = 0.0, []
+        for k in sorted(got):
+            r0, vol = got[k]
+            err = max(err, _compare(f"K4 {label} rank {k}", vol, want[k][1]))
+            _compare(f"K4 {label} rank {k} against K1",
+                     vol, ref[:, r0:r0 + vol.shape[1]])
+            rows.append(vol.shape[1])
+        errs["fused_block"] = max(errs["fused_block"], err)
+        print(f"[{phase}] K4 == plain, sharded over {n} ranks of the card "
+              f"(rows {rows}), {label}: {u.shape[0]}x{u.shape[1]}x3, "
+              f"L={inp['L']}, ndir {cfg.ndir} TSGM {cfg.mgm}, "
+              f"{cfg.distance}, {'FH' if cfg.use_trunc_linear else 'SGM'}, "
+              f"{ns} spaces: {TOL}, max abs err {err}; every band == K1's "
+              f"unsharded volume; plain {t:.1f} ms", flush=True)
+        del got, want, ref, inp
+        torch.cuda.empty_cache()
+    return plain_ms
+
+
+def _k4_bound(cfg, inp, n):
+    """K1's bound (the same volume, images and operations) plus K4's
+    tracks: each step's edge row shipped by n - 1 ranks and read by
+    their neighbours, in every A/B sub-launch."""
+    from mgm_tpu_torch.ops import fused
+    from mgm_tpu_torch.parallel.fused_shard import _sub_launch
+
+    nbytes, ops = _k1_work(cfg, inp, 2)
+    _, R, C, _ = inp["lefts"].shape
+    ns = len(inp["sides"])
+    track = 0
+    for g in fused.split_passes(cfg.ndir, cfg.mgm)[0]:
+        if g[0] <= 0:
+            continue
+        for kw in fused.group_launches(g, inp["sides"], R=R, mgm=cfg.mgm,
+                                       kappa=0.0, fold=False):
+            T = kw["fstep"] * (C - 1) + kw["slope"] * (R - 1) + 1
+            for space in range(len(kw["planes"]) // ns):
+                ms = _sub_launch(kw, space, ns)[1]
+                if ms is not None:
+                    track += 2 * (n - 1) * T * len(ms) * inp["L"] * 4
+    return _bound(nbytes + track, ops)
+
+
+def _mesh_path(phase, tag, cfg, pair, n, card, win=None):
+    """compute_disparity over n in-process ranks on the card: every
+    output bitwise equal to the unsharded run's, K4 and (constant
+    windows) K2 launched, K1 not; the median walls of NEW_REPS runs,
+    sharded and unsharded.  Returns the launch counts."""
+    import torch
+    from mgm_tpu_torch import compute_disparity
+    from mgm_tpu_torch.parallel import make_mesh
+
+    u, v, _ = pair
+    win = win or {}
+    mesh = make_mesh(devices=["cuda:0"] * n)
+    ref = compute_disparity(u, v, cfg, device="cuda", **win)
+    names = ("fused_block",) if win else SHARD_KERNELS
+    _zero(SHARD_KERNELS + ("fused_wavefront",))
+    torch.cuda.reset_peak_memory_stats()
+    out = compute_disparity(u, v, cfg, mesh=mesh, **win)
+    got = _counts(names)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if min(got.values()) < 1 or _counts(("fused_wavefront",))[
+            "fused_wavefront"]:
+        raise AssertionError(f"{tag}: the sharded run bypassed K4 or "
+                             f"launched K1: {got}")
+    if sorted(out) != sorted(ref):
+        raise AssertionError(f"{tag}: keys {sorted(out)}")
+    for k in ref:
+        _compare(f"{tag} {k} against the unsharded run",
+                 torch.from_numpy(out[k]), torch.from_numpy(ref[k]))
+    walls = _walls(lambda: compute_disparity(
+        u, v, cfg, mesh=mesh, outputs=("disp", "cost"), **win), NEW_REPS)
+    walls1 = _walls(lambda: compute_disparity(
+        u, v, cfg, device="cuda", outputs=("disp", "cost"), **win),
+        NEW_REPS)
+    H_, W_ = u.shape[:2]
+    L_ = cfg.dmax - cfg.dmin + 1
+    med, med1 = statistics.median(walls), statistics.median(walls1)
+    print(f"[{phase}] {tag}: {W_}x{H_}x3 L={L_} over {n} ranks of one card "
+          f"(ndir {cfg.ndir}, TSGM {cfg.mgm}, {cfg.distance}"
+          f"{', per-pixel windows' if win else ''}): every output == the "
+          f"unsharded run ({TOL}); launches {got}; peak device memory "
+          f"{peak:.3f} GiB; wall s {walls}, median {med:.4f} s = "
+          f"{2 * H_ * W_ * L_ / med / 1e6:.1f} MP*disp/s; unsharded "
+          f"median {med1:.4f} s = {2 * H_ * W_ * L_ / med1 / 1e6:.1f} "
+          f"MP*disp/s on {card}", flush=True)
+    return got
+
+
+def _dist_worker(pid: int, nprocs: int, port: str, outdir: str) -> int:
+    """One process of phase 26/27's group: cfg1 through
+    compute_disparity_distributed on the synthetic pair; writes its
+    outputs and a line of launches and walls."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+    from mgm_tpu_torch.ops import cuda_fused
+    from mgm_tpu_torch.parallel import distributed
+    from mgm_tpu_torch.synthetic import synthetic_pair
+
+    distributed.initialize(f"localhost:{port}", nprocs, pid)
+    try:
+        u, v, _ = synthetic_pair(H, W, DMIN, DMAX, seed=0)
+        cfg = _fast_ad()
+        cuda_fused.fused_block.launches = 0
+        out = distributed.compute_disparity_distributed(u, v, cfg)
+        launches = cuda_fused.fused_block.launches
+        np.savez(os.path.join(outdir, f"proc{pid}.npz"), **out)
+        walls = []
+        for _ in range(NEW_REPS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            distributed.compute_disparity_distributed(
+                u, v, cfg, outputs=("disp", "cost"))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        print(json.dumps({"pid": pid, "backend": dist.get_backend(),
+                          "launches": launches, "walls": walls}),
+              flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _two_processes(phase, tag, ref, card):
+    """Phase 26/27: two processes of cfg1 over this card (or cards),
+    each one's outputs bitwise equal to `ref`; returns (the launches of
+    K4 in process 0's first run, its median wall, the backend)."""
+    import socket
+
+    import torch
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             str(pid), str(port), tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for pid in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        recs = []
+        for pid, (p, o) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"{tag} process {pid} failed:\n"
+                                     f"{o[-4000:]}")
+            recs.append(json.loads([ln for ln in o.splitlines()
+                                    if ln.startswith('{"pid"')][-1]))
+            got = np.load(os.path.join(tmp, f"proc{pid}.npz"))
+            if sorted(got.files) != sorted(ref):
+                raise AssertionError(f"{tag}: keys {sorted(got.files)}")
+            for k in ref:
+                _compare(f"{tag} process {pid} {k} against one process",
+                         torch.from_numpy(got[k]), torch.from_numpy(ref[k]))
+    med = statistics.median(recs[0]["walls"])
+    print(f"[{phase}] {tag}: cfg1 {W}x{H}x3 L={L} over 2 processes "
+          f"({recs[0]['backend']}): every output of each process == the "
+          f"single-process run ({TOL}); K4 launches a process "
+          f"{[r['launches'] for r in recs]}; process 0 wall s "
+          f"{recs[0]['walls']}, median {med:.4f} s = "
+          f"{2 * H * W * L / med / 1e6:.1f} MP*disp/s on {card}",
+          flush=True)
+    return recs[0]["launches"], med, recs[0]["backend"]
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--dist-worker"]:
+        return _dist_worker(int(argv[1]), 2, argv[2], argv[3])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--data", default=os.path.join(REPO, "data"),
                     help="directory with fountain23-im{L,R}.png (optional)")
@@ -700,6 +946,7 @@ def main(argv=None) -> int:
     from mgm_tpu_torch.ops import aggregate as agg
     from mgm_tpu_torch.ops import wavefront as wf
     from mgm_tpu_torch.ops.cost import _bt_aux, build_cost_volume
+    from mgm_tpu_torch.parallel.fused_shard import BLOCK
     from mgm_tpu_torch.synthetic import synthetic_mrf, synthetic_pair
 
     t_start = time.perf_counter()
@@ -1128,7 +1375,8 @@ def main(argv=None) -> int:
     import contextlib
     import io
     with tempfile.TemporaryDirectory() as tmp:
-        old_tmp, tempfile.tempdir = tempfile.tempdir, tmp
+        dump = os.path.join(tmp, "ENERGY_L1trunc.tif")
+        old_dump, stereo.ENERGY_DUMP = stereo.ENERGY_DUMP, dump
         try:
             energies = {}
             for device in ("cuda", "cpu"):
@@ -1139,13 +1387,12 @@ def main(argv=None) -> int:
                 energies[device] = np.array(
                     [[float(x.split()[-1]) for x in ln.split("\t")]
                      for ln in buf.getvalue().splitlines() if "ENERGY" in ln])
-            dump = os.path.join(tmp, "ENERGY_L1trunc.tif")
             # a float32 TIFF of the crop: at least its pixels' bytes
             if not (os.path.exists(dump) and os.path.getsize(dump)
                     >= u[CROP].shape[0] * u[CROP].shape[1] * 4):
                 raise AssertionError("TSGM_DEBUG wrote no energy image")
         finally:
-            tempfile.tempdir = old_tmp
+            stereo.ENERGY_DUMP = old_dump
     ec, ep = energies["cuda"], energies["cpu"]
     rel = float(np.max(np.abs(ec - ep) / np.abs(ep))) if ep.size else 1.0
     print(f"[21] TSGM_DEBUG on a {u[CROP].shape[:2]} crop (cfg1, 3 "
@@ -1273,14 +1520,76 @@ def main(argv=None) -> int:
         raise AssertionError("cfg3_scene: tiles or recovery")
     del su, sv, sd, scene, single
 
+    # ---- 24. K4 against its plain version: the sharded recursion ----
+    strip_rows = synthetic_pair(STRIP, W, DMIN, DMAX, seed=1)[:2]
+    ragged = synthetic_pair(61, W, DMIN, DMAX, seed=5)[:2]
+    plain_k4 = _k4_check("24", (
+        ("cfg1 A/B stagger, full shape", cfg, (u, v), 2, None),
+        ("cfg2 V group (lockstep aprons)", cfg2, strip_rows, 2, 1),
+        ("cfg1_tsgm4 PB group (lockstep aprons)", _fast_ad(mgm=4),
+         strip_rows, 2, 1),
+        ("cfg1, ragged rows", cfg, ragged, 3, None)), errs)
+    inp = _k1_inputs(cfg, u, v)
+    _zero(("fused_block",))
+    _k4_planes(cuda_fused.fused_block, cfg, inp, 2)
+    blocks = _counts(("fused_block",))["fused_block"]
+    ms["fused_block"] = _event_ms(lambda: _k4_planes(
+        cuda_fused.fused_block, cfg, inp, 2), 3)
+    plain_ms["fused_block"] = plain_k4[0]
+    library_ms["fused_block"] = None
+    bounds["fused_block"] = _k4_bound(cfg, inp, 2)
+    print(f"[24] fused_block: {ms['fused_block']:.3f} ms for cfg1's sharded "
+          f"recursion over 2 ranks of one card ({blocks} blocks of "
+          f"{BLOCK} steps = {ms['fused_block'] / blocks:.4f} ms a block), plain "
+          f"{plain_ms['fused_block']:.3f} ms, bound "
+          f"{bounds['fused_block'][0]:.3f} ms ({bounds['fused_block'][1]}: "
+          f"K1's volume, images and tracks) on {card}", flush=True)
+    del inp
+    torch.cuda.empty_cache()
+
+    # ---- 25. the sharded path end to end ------------------------------
+    for tag, rcfg, n, win in (
+            ("cfg1_mesh2", cfg, 2, None), ("cfg1_mesh4", cfg, 4, None),
+            ("cfg2_mesh2", cfg2, 2, None),
+            ("cfg1_tsgm4_mesh2", _fast_ad(mgm=4), 2, None),
+            ("cfg1_mM_mesh2", cfg, 2, dict(zip(("dmin_img", "dmax_img"),
+                                               wins["cfg1_mM_truth8"])))):
+        got = _mesh_path("25", tag, rcfg, pair, n, card, win)
+        for k in got:
+            by_path[k][tag] = got[k]
+        torch.cuda.empty_cache()
+
+    # ---- 26. two processes on the one card ----------------------------
+    ref1 = compute_disparity(u, v, cfg, device="cuda")
+    by_path["fused_block"]["cfg1_2proc"] = _two_processes(
+        "26", "cfg1_2proc", ref1, card)[0]
+
+    # ---- 27. several cards ---------------------------------------------
+    if torch.cuda.device_count() > 1:
+        from mgm_tpu_torch.parallel import make_mesh
+
+        out = compute_disparity(u, v, cfg, mesh=make_mesh(2))
+        for k in ref1:
+            _compare(f"cfg1 over cuda:0 and cuda:1 {k}",
+                     torch.from_numpy(out[k]), torch.from_numpy(ref1[k]))
+        print(f"[27] cfg1 over 2 cards in one process == one card ({TOL})",
+              flush=True)
+        _two_processes("27", "cfg1_2cards_nccl", ref1, card)
+    else:
+        print("[27] one card: the mesh over distinct cards and the NCCL "
+              "group were not measured", flush=True)
+    del ref1
+
     launches = {n: sum(c.values()) for n, c in by_path.items()}
-    print(f"[23] smoke run took {time.perf_counter() - t_start:.1f} s",
+    print(f"[27] smoke run took {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     src = {"fused_wavefront": ("mgm_tpu_torch/csrc/fused_wavefront.cu",
                                "mgm_tpu/ops/pallas_fused.py:692"),
            "wta": ("mgm_tpu_torch/csrc/wta.cu",
                    "mgm_tpu/ops/pallas_fused.py:158"),
+           "fused_block": ("mgm_tpu_torch/csrc/fused_block.cu",
+                           "mgm_tpu/ops/pallas_fused.py:375"),
            "wavefront_scan": ("mgm_tpu_torch/csrc/wavefront.cu",
                               "mgm_tpu/ops/pallas_wavefront.py:224"),
            "skew": ("mgm_tpu_torch/csrc/skew.cu",

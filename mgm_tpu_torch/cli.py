@@ -9,7 +9,8 @@ line runs verbatim:
 
 It runs on one CUDA device (`main(argv, device="cpu")` runs the plain
 PyTorch versions of the kernels instead); it never falls back to the CPU
-by itself.
+by itself.  `main(argv, mesh=...)` shards the solve over a
+parallel.RowMesh's rows; then only the process holding rank 0 writes.
 
 Env honoured: CENSUS_NCC_WIN, TESTLRRL, TESTLRRL_TAU, MEDIAN, TSGM,
 TSGM_ITER, TSGM_FIX_OVERCOUNT, USE_TRUNCATED_LINEAR_POTENTIALS,
@@ -72,7 +73,7 @@ def pick_option(argv: list[str], name: str, default: str | None) -> str | None:
     return default
 
 
-def main(argv=None, device="cuda") -> int:
+def main(argv=None, device="cuda", mesh=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--help" in argv or "-h" in argv:
         print(HELP)
@@ -153,6 +154,8 @@ def main(argv=None, device="cuda") -> int:
                    if os.environ.get(n) not in (None, "")})
         cfg = MGMConfig(**kw)
 
+    if mesh is not None:
+        device = mesh.device
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "plain PyTorch kernels on the CPU")
@@ -162,7 +165,11 @@ def main(argv=None, device="cuda") -> int:
     dmax_img = read_image(opts["M"])[..., 0] if opts["M"] else None
 
     res = compute_disparity(u, v, cfg, device=device, dmin_img=dmin_img,
-                            dmax_img=dmax_img)
+                            dmax_img=dmax_img, mesh=mesh)
+    if mesh is not None and not mesh.writes:
+        # every process holds the gathered outputs; rank 0's files are
+        # the canonical ones (N processes would race on shared files)
+        return 0
 
     if opts["l"]:
         write_image(opts["l"], res["disp_nolr"])

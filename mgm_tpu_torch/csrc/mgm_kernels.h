@@ -60,6 +60,27 @@ struct WaveParams {
   signed char combo_lag[MGM_MAX_COMBOS], combo_roll[MGM_MAX_COMBOS];
 };
 
+// K4's band of rows under row sharding (parallel/fused_shard.py).
+struct BandTail {
+  // (2 * G, Ml, L): the neighbour band's row that this band's edge row
+  // reads, for the steps step0 - G .. step0 + G - 1, or 0 (rows outside
+  // the band read +inf)
+  const float* halo;
+  float* ship;         // (G, Ml, L): row ship_row of each step, or 0
+  int r0;              // image row of local row 0 (< 0 in a top apron)
+  int Rl;              // local rows: the grid's and the ring's
+  int out_off, out_R;  // out holds local rows out_off .. out_off+out_R-1
+  int ship_row;        // -1 without a ship track
+  int G, step0, nsteps;  // the block: steps step0 .. step0 + nsteps - 1
+};
+
+// One block of K4: K1's launch (w.R the image's rows, w.hist/w.mins the
+// band's (D + 1, Ml, Rl, L) ring, w.out (Mp, out_R, C, L)) on a band.
+struct BandParams {
+  WaveParams w;
+  BandTail b;
+};
+
 #define MGM_MAX_OFFS 5
 
 // Dense MGM recursion over one skewed canonical pass group (K5).

@@ -1,12 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Every `mgm_tpu_torch/csrc/*.cu` goes into ONE shared library with a
-plain C interface (no PyTorch headers, so nvcc takes seconds), in one
-nvcc call:
+plain C interface (no PyTorch headers, so nvcc takes seconds): one
+nvcc call a source, all started together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         --fmad=false -Xcompiler -fPIC -Xptxas=-v -shared
-         -o lib.so csrc/*.cu
+         --fmad=false -Xcompiler -fPIC -Xptxas=-v -c -o x.o csrc/x.cu
+    nvcc -shared -o lib.so *.o
 
 `--fmad=false` and no fast math keep the kernels' float arithmetic
 operation-for-operation equal to their plain PyTorch versions.  The
@@ -63,22 +63,34 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists:
-    one nvcc call for every source.  The compiler's report (registers,
-    spills) is kept in build.log."""
+    one nvcc process a source, all at once, then the link.  The
+    compiler's report (registers, spills) is kept in build.log."""
     lib = library_path()
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    nvcc = _nvcc()
+    cu = [s for s in _sources() if s.suffix == ".cu"]
     with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objs = [os.path.join(tmp, s.stem + ".o") for s in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", o, str(s)]
+                for s, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
         out = os.path.join(tmp, lib.name)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o", out,
-               *cu]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        link = [nvcc, "-shared", "-o", out, *objs]
+        for cmd, p, log in zip(cmds, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        res = subprocess.run(link, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        (lib.parent / "build.log").write_text(res.stdout + res.stderr)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(link)}\n{res.stdout}"
+                               f"{res.stderr}")
+        (lib.parent / "build.log").write_text("".join(logs))
         # a rename, so concurrent builds never see a partial file
         os.replace(out, lib)
     return lib

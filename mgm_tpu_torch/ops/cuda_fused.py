@@ -12,6 +12,13 @@ plain PyTorch version and a launch counter:
   K2 `wta` (csrc/wta.cu) replaces pallas_fused._wta_kernel: the sum of
      the spaces, the windowed winner-take-all and optionally the four
      S taps of the subpixel fits, for a batch of pairs.
+  K4 `fused_block` (csrc/fused_block.cu) replaces
+     pallas_fused._block_kernel: G scan steps of one K1 launch on one
+     rank's band of rows under row sharding (parallel/fused_shard.py),
+     the ring carried from block to block, rows beyond the band read
+     from the neighbour's halo track and the band's edge row shipped.
+     It is K1's front code (csrc/fused_front.cuh) in instances of its
+     own, so its arithmetic is K1's at every pixel.
 
 The per-label cost and the messages are defined once on each side:
 csrc/mgm_device.cuh on the card (shared with K5 and K8), and
@@ -87,6 +94,14 @@ class _WaveParams(ctypes.Structure):
            ("combo_roll", ctypes.c_int8 * MAX_COMBOS)])
 
 
+class _BandParams(ctypes.Structure):
+    _fields_ = ([("w", _WaveParams), ("halo", ctypes.c_void_p),
+                 ("ship", ctypes.c_void_p)]
+                + [(f, ctypes.c_int) for f in ("r0", "Rl", "out_off",
+                                               "out_R", "ship_row", "G",
+                                               "step0", "nsteps")])
+
+
 class _WtaParams(ctypes.Structure):
     _fields_ = (
         [(f, ctypes.c_void_p) for f in ("vol", "disp", "cost", "taps")]
@@ -103,6 +118,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load()
     for name, size_name, struct in (
             ("mgm_fused_wavefront", "mgm_wave_params_size", _WaveParams),
+            ("mgm_fused_block", "mgm_band_params_size", _BandParams),
             ("mgm_wta", "mgm_wta_params_size", _WtaParams)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
@@ -195,6 +211,59 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
       with the target pixel's window.
     npair: the pairs of the batch, each with the same planes.
     Returns `out`."""
+    N, R, C, _ = left.shape
+    Ml = len(mspecs) * npair
+    D = max(lag for lag, _ in combos)
+    T = fstep * (C - 1) + slope * (R - 1) + 1
+    hist = torch.full((D + 1, Ml, R, L), INF, dtype=torch.float32,
+                      device=left.device)
+    mins = torch.full((D + 1, Ml, R), INF, dtype=torch.float32,
+                      device=left.device)
+    return fused_block_plain(
+        left, right, out, hist, mins, step0=0, nsteps=T,
+        accumulate=accumulate, planes=planes, mspecs=mspecs, combos=combos,
+        L=L, slope=slope, fstep=fstep, mgm=mgm, mode=mode, tmax=tmax, p1=p1,
+        p2=p2, kappa=kappa, reverse=reverse, use_fh=use_fh, w8=w8,
+        lo_px=lo_px, hi_px=hi_px, fh_restrict=fh_restrict, npair=npair)
+
+
+def _edge_shift(a, roll: int, edge):
+    """a (Ml, Rl, ...) with row r taking row r - roll (|roll| <= 1); the
+    vacated row takes `edge` (Ml, ...)."""
+    if roll > 0:
+        return torch.cat([edge[:, None], a[:, :-1]], 1)
+    return torch.cat([a[:, 1:], edge[:, None]], 1)
+
+
+def fused_block_plain(left, right, out, hist, mins, *, step0, nsteps,
+                      accumulate, planes, mspecs, combos, L, slope, fstep,
+                      mgm, mode, tmax, p1, p2, kappa, reverse, use_fh=False,
+                      w8=None, lo_px=None, hi_px=None, fh_restrict=False,
+                      npair=1, r0=0, out_off=0, halo=None, ship=None,
+                      ship_row=-1, G=None):
+    """Plain PyTorch version of K4 (and, over every step of a launch on
+    every row, of K1): the scan steps step0 .. step0 + nsteps - 1 of one
+    launch of K1's recursion (front t = step, or T - 1 - step backward)
+    on a band of rows, the recursion state carried in a ring.
+
+    The launch's arguments are K1's (fused_wavefront_plain); left,
+    right, w8 and lo_px/hi_px hold the whole image (R rows), so the
+    front map, the border rule and the images use image rows.  The band
+    is `hist`'s Rl local rows; local row r is image row r0 + r (r0 < 0
+    or rows past R: apron or padding rows, skipped).
+    hist/mins: the (D + 1, Ml, Rl, L) ring of recursion fronts and its
+      (D + 1, Ml, Rl) minima, front t in slot t % (D + 1), carried from
+      block to block (K1's ring).
+    out: (Mp / nsides * N, out_R, C, L); local row r writes out row
+      r - out_off when that lies in [0, out_R).
+    halo: (2G, Ml, L) the neighbour band's row that this band's edge
+      row reads, for the steps step0 - G .. step0 + G - 1 (its minimum
+      is recomputed, min being exact in any order), or None: rows
+      outside the band read +inf.
+    ship: (G, Ml, L), or None: step step0 + u of the block writes local
+      row `ship_row` of each recursion into ship[u], the track the
+      neighbour band's halo takes.
+    Returns `out`."""
     dev = left.device
     N, R, C, _ = left.shape
     planes, mspecs, out_ix = _pair_tables(planes, mspecs, npair,
@@ -202,6 +271,8 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
     Mp, Ml = len(planes), len(mspecs)
     D = max(lag for lag, _ in combos)
     T = fstep * (C - 1) + slope * (R - 1) + 1
+    Rl, out_R = hist.shape[2], out.shape[1]
+    G = nsteps if G is None else G
     f32 = dict(dtype=torch.float32, device=dev)
 
     def field(k):
@@ -212,7 +283,10 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
     gmin, lo, hi = (field(k)[:, None, None] for k in (1, 2, 3))
     a0, ssgn = field(4)[:, None], field(5)[:, None]
     U, V = left[side], right[side]                 # (Mp, R, C, nch)
-    rows = torch.arange(R, device=dev)
+    lrows = torch.arange(Rl, device=dev)
+    rows = r0 + lrows                              # image rows of the band
+    inside = (rows >= 0) & (rows < R)
+    rows_c = rows.clamp(0, R - 1)
     lab = torch.arange(L, device=dev)
     in_win = (lab >= lo) & (lab <= hi)             # (Mp, 1, L)
     pidx = torch.arange(Mp, device=dev)[:, None]
@@ -231,23 +305,25 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
                              for ms in mspecs] for ci in range(len(combos))],
                            device=dev)
         midx = torch.arange(Ml, device=dev)[:, None]
-    hist = [(torch.full((Ml, R, L), INF, **f32),
-             torch.full((Ml, R), INF, **f32))] * D
 
-    for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        num = t - a0 + ssgn * slope * rows          # (Mp, R)
+    for u in range(nsteps):
+        step = step0 + u
+        if step >= T:
+            break
+        t = T - 1 - step if reverse else step
+        num = t - a0 + ssgn * slope * rows          # (Mp, Rl)
         col = num // fstep
-        valid = (num >= 0) & (num % fstep == 0) & (col < C)
+        valid = (num >= 0) & (num % fstep == 0) & (col < C) & inside
         colc = col.clamp(0, C - 1)
-        u_t = U[pidx, rows, colc]                   # (Mp, R, nch)
-        q = col[..., None] + gmin + lab             # (Mp, R, L)
-        v_t = V[pidx[..., None], rows[:, None], q.clamp(0, C - 1)]
+        u_t = U[pidx, rows_c, colc]                 # (Mp, Rl, nch)
+        q = col[..., None] + gmin + lab             # (Mp, Rl, L)
+        v_t = V[pidx[..., None], rows_c[:, None], q.clamp(0, C - 1)]
         raw = pointwise_cost(u_t[:, :, None], v_t, mode)
         e = torch.where((q >= 0) & (q < C), raw.clamp(max=tmax), tmax)
         if lo_px is not None:
             # each pixel's own window (pallas_fused.py:860-862)
-            win = ((lab >= lo_px[side[:, None], rows, colc][..., None])
-                   & (lab <= hi_px[side[:, None], rows, colc][..., None]))
+            win = ((lab >= lo_px[side[:, None], rows_c, colc][..., None])
+                   & (lab <= hi_px[side[:, None], rows_c, colc][..., None]))
         else:
             win = in_win
         # all-invalid window -> 0 (mgm_costvolume.h:410-421)
@@ -256,20 +332,29 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
         cc = torch.where(win & valid[..., None], e, INF)
         if w8 is not None:
             # each recursion's weights at the pixels being updated
-            wt = W8[midx, rows, colc[rec_plane]]    # (Ml, R, 8)
+            wt = W8[midx, rows_c, colc[rec_plane]]  # (Ml, Rl, 8)
         # the FH input mask: each recursion's target window
-        fh_win = (win.expand(Mp, R, L)[rec_plane]
+        fh_win = (win.expand(Mp, Rl, L)[rec_plane]
                   if use_fh and fh_restrict and lo_px is not None else None)
 
         msgs = []
         for ci, (lag, roll) in enumerate(combos):
-            f, mn = hist[lag - 1]
-            if roll:
+            slot = (t + lag if reverse else t - lag) % (D + 1)
+            f, mn = hist[slot], mins[slot]
+            if roll and halo is not None:
+                # the band's edge row reads the neighbour's shipped row
+                if abs(roll) != 1:
+                    raise ValueError(f"a halo serves row rolls of 1, got "
+                                     f"{roll}")
+                h = halo[u - lag + G]
+                f = _edge_shift(f, roll, h)
+                mn = _edge_shift(mn, roll, h.amin(-1))
+            elif roll:
                 f = shift_fill(f, roll, 1, INF)
                 mn = shift_fill(mn, roll, 1, INF)
             mk = mn[..., None]
             if w8 is not None:
-                d = wt[midx, rows, wch[ci][:, None]][..., None]   # (Ml, R, 1)
+                d = wt[midx, lrows, wch[ci][:, None]][..., None]
                 p1w, p2w = d * p1f, d * p2f
             else:
                 p1w, p2w = p1f, p2f
@@ -305,40 +390,40 @@ def fused_wavefront_plain(left, right, out, *, accumulate, planes, mspecs,
 
         for i, (_, _, _, _, pa0, pss, fold) in enumerate(planes):
             live = _valid_rows(t, pa0, pss, slope, C, R, fstep)
+            # the local rows of them that `out` holds (Python ranges: a
+            # mask on the card would wait for it every front)
+            first = r0 + out_off
+            skip = max(0, -(-(first - live.start) // live.step))
+            start = live.start + skip * live.step
+            live = range(start, min(live.stop, first + out_R), live.step)
             if not live:
                 continue
             o = sums[i] if sums[i] is not None else torch.zeros_like(cc[i])
             if fold:
                 o = o + kappa * cc[i]
-            rr = rows[live.start:live.stop:live.step]
-            cols = col[i, rr]
-            o = o[rr]
+            lr = lrows[live.start - r0:live.stop - r0:live.step]
+            cols = col[i, lr]
+            o = o[lr]
             if accumulate:
-                o = out[out_ix[i], rr, cols] + o
-            out[out_ix[i], rr, cols] = o
+                o = out[out_ix[i], lr - out_off, cols] + o
+            out[out_ix[i], lr - out_off, cols] = o
         new = torch.stack(news)
-        hist = [(new, new.amin(-1))] + hist[:-1]
+        slot_t = t % (D + 1)
+        hist[slot_t] = new
+        mins[slot_t] = new.amin(-1)
+        if ship is not None:
+            ship[u] = new[:, ship_row]
     return out
 
 
-def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
-                    L, slope, fstep, mgm, mode, tmax, p1, p2, kappa, reverse,
-                    use_fh=False, w8=None, lo_px=None, hi_px=None,
-                    fh_restrict=False, npair=1):
-    """K1: one scan direction of the fused recursion (arguments as in
-    fused_wavefront_plain).  CPU tensors take the plain version; CUDA
-    tensors launch csrc/fused_wavefront.cu, T front kernels on the
-    current stream."""
-    kw = dict(accumulate=accumulate, planes=planes, mspecs=mspecs,
-              combos=combos, L=L, slope=slope, fstep=fstep, mgm=mgm,
-              mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
-              reverse=reverse, use_fh=use_fh, w8=w8, lo_px=lo_px,
-              hi_px=hi_px, fh_restrict=fh_restrict, npair=npair)
+def _wave_params(name, left, right, out, hist, mins, *, out_rows,
+                 accumulate, planes, mspecs, combos, L, slope, fstep, mgm,
+                 mode, tmax, p1, p2, kappa, reverse, use_fh, w8, lo_px,
+                 hi_px, fh_restrict, npair):
+    """K1's parameter block for CUDA tensors (checked against the
+    kernel's limits); `out_rows`: the rows of `out`, the ring's rows
+    hist.shape[-2]."""
     dev = left.device
-    if dev.type == "cpu":
-        return fused_wavefront_plain(left, right, out, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_wavefront: unsupported device {dev}")
     N, R, C, nch = left.shape
     Mp, Ml, nco = len(planes), len(mspecs), len(combos)
     ns = N // npair if npair >= 1 else 0
@@ -348,28 +433,27 @@ def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
             or not 1 <= npair <= 65535 or ns < 1 or N != npair * ns
             or Mp % ns or any(p[0] != i % ns for i, p in enumerate(planes))
             or (lo_px is None) != (hi_px is None)):
-        raise ValueError(f"fused_wavefront: outside the kernel's limits "
+        raise ValueError(f"{name}: outside the kernel's limits "
                          f"(planes {Mp}, recursions {Ml}, combos {nco}, "
                          f"mgm {mgm}, L {L}, mode {mode!r}, slope {slope}, "
                          f"fstep {fstep}, {npair} pairs of {N} sides; the "
                          f"planes space-major, lo/hi both or neither)")
     dtype = torch.int32 if mode == "census" else torch.float32
     if mode in ("btad", "btsd") and nch % 3:
-        raise ValueError(f"fused_wavefront: BT needs [I, Imin, Imax] "
-                         f"blocks, got {nch} channels")
+        raise ValueError(f"{name}: BT needs [I, Imin, Imax] blocks, got "
+                         f"{nch} channels")
     _check("left", left, (N, R, C, nch), dev, dtype)
     _check("right", right, (N, R, C, nch), dev, dtype)
-    _check("out", out, (Mp // ns * N, R, C, L), dev)
+    _check("out", out, (Mp // ns * N, out_rows, C, L), dev)
     if w8 is not None:
         _check("w8", w8, (N, R, C, 8), dev)
     if lo_px is not None:
         _check("lo_px", lo_px, (N, R, C), dev, torch.int32)
         _check("hi_px", hi_px, (N, R, C), dev, torch.int32)
     D = max(lag for lag, _ in combos)
-    hist = torch.empty((npair, D + 1, Ml, R, L), dtype=torch.float32,
-                       device=dev)
-    mins = torch.empty((npair, D + 1, Ml, R), dtype=torch.float32,
-                       device=dev)
+    rows = hist.shape[-2]
+    _check("hist", hist, hist.shape[:-4] + (D + 1, Ml, rows, L), dev)
+    _check("mins", mins, hist.shape[:-4] + (D + 1, Ml, rows), dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -399,6 +483,35 @@ def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
                               if need)
     for k, (lag, roll) in enumerate(combos):
         p.combo_lag[k], p.combo_roll[k] = lag, roll
+    return p
+
+
+def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
+                    L, slope, fstep, mgm, mode, tmax, p1, p2, kappa, reverse,
+                    use_fh=False, w8=None, lo_px=None, hi_px=None,
+                    fh_restrict=False, npair=1):
+    """K1: one scan direction of the fused recursion (arguments as in
+    fused_wavefront_plain).  CPU tensors take the plain version; CUDA
+    tensors launch csrc/fused_wavefront.cu, T front kernels on the
+    current stream."""
+    kw = dict(accumulate=accumulate, planes=planes, mspecs=mspecs,
+              combos=combos, L=L, slope=slope, fstep=fstep, mgm=mgm,
+              mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
+              reverse=reverse, use_fh=use_fh, w8=w8, lo_px=lo_px,
+              hi_px=hi_px, fh_restrict=fh_restrict, npair=npair)
+    dev = left.device
+    if dev.type == "cpu":
+        return fused_wavefront_plain(left, right, out, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_wavefront: unsupported device {dev}")
+    N, R = left.shape[:2]
+    D = max(lag for lag, _ in combos)
+    hist = torch.empty((npair, D + 1, len(mspecs), R, L),
+                       dtype=torch.float32, device=dev)
+    mins = torch.empty((npair, D + 1, len(mspecs), R), dtype=torch.float32,
+                       device=dev)
+    p = _wave_params("fused_wavefront", left, right, out, hist, mins,
+                     out_rows=R, **kw)
     err = _lib().mgm_fused_wavefront(ctypes.byref(p), _stream(dev))
     if err:
         raise RuntimeError(f"fused_wavefront: CUDA error {err}")
@@ -407,6 +520,60 @@ def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
 
 
 fused_wavefront.launches = 0
+
+
+# ---------------------------------------------------------------- K4 ----
+
+def fused_block(left, right, out, hist, mins, *, step0, nsteps, G,
+                accumulate, planes, mspecs, combos, L, slope, fstep, mgm,
+                mode, tmax, p1, p2, kappa, reverse, use_fh=False, w8=None,
+                lo_px=None, hi_px=None, fh_restrict=False, r0=0, out_off=0,
+                halo=None, ship=None, ship_row=-1):
+    """K4: G scan steps of one K1 launch on a band of rows, the
+    recursion's ring carried (arguments as in fused_block_plain, one
+    image pair; G >= the deepest lag, nsteps <= G).  CPU tensors take
+    the plain version; CUDA tensors launch csrc/fused_block.cu, one
+    front kernel a step on the current stream of the tensors' card; it
+    never falls back to the plain version."""
+    kw = dict(accumulate=accumulate, planes=planes, mspecs=mspecs,
+              combos=combos, L=L, slope=slope, fstep=fstep, mgm=mgm,
+              mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
+              reverse=reverse, use_fh=use_fh, w8=w8, lo_px=lo_px,
+              hi_px=hi_px, fh_restrict=fh_restrict)
+    dev = left.device
+    if dev.type == "cpu":
+        return fused_block_plain(left, right, out, hist, mins, step0=step0,
+                                 nsteps=nsteps, G=G, r0=r0, out_off=out_off,
+                                 halo=halo, ship=ship, ship_row=ship_row,
+                                 **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_block: unsupported device {dev}")
+    Ml, rows = len(mspecs), hist.shape[-2]
+    D = max(lag for lag, _ in combos)
+    if (not 0 < nsteps <= G or G < D or step0 < 0
+            or not -1 <= ship_row < rows or (ship is None) != (ship_row < 0)
+            or hist.ndim != 4):
+        raise ValueError(f"fused_block: {nsteps} steps of a {G}-step block "
+                         f"(lags up to {D}), ship row {ship_row} of {rows}")
+    if halo is not None:
+        _check("halo", halo, (2 * G, Ml, L), dev)
+    if ship is not None:
+        _check("ship", ship, (G, Ml, L), dev)
+    w = _wave_params("fused_block", left, right, out, hist, mins,
+                     out_rows=out.shape[1], npair=1, **kw)
+    p = _BandParams(w=w, halo=None if halo is None else halo.data_ptr(),
+                    ship=None if ship is None else ship.data_ptr(), r0=r0,
+                    Rl=rows, out_off=out_off, out_R=out.shape[1],
+                    ship_row=ship_row, G=G, step0=step0, nsteps=nsteps)
+    with torch.cuda.device(dev):
+        err = _lib().mgm_fused_block(ctypes.byref(p), _stream(dev))
+    if err:
+        raise RuntimeError(f"fused_block: CUDA error {err}")
+    fused_block.launches += 1
+    return out
+
+
+fused_block.launches = 0
 
 
 # ---------------------------------------------------------------- K2 ----

@@ -337,7 +337,7 @@ def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, w8=None,
                     mgm: int, p1: float, p2: float, mode: str,
                     trunc_dist: float, fix_overcount: bool,
                     use_fh: bool = False, want_taps: bool = False,
-                    lo_px=None, hi_px=None):
+                    lo_px=None, hi_px=None, mesh=None):
     """One MGM solve from preprocessed images, costs fused into the
     recursion (the JAX solve with want_S False or "taps").  Side 1 of a
     pair (the LR check's right solve) swaps the images.
@@ -359,6 +359,10 @@ def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, w8=None,
     materialised (K1 folds kappa*CC when there are no leftover passes),
     the knight passes are added from the dense path, S is assembled
     and the taps gathered from it (fused.py:566-672).
+    mesh: a parallel.RowMesh: the recursion runs row-sharded through
+      K4 (parallel/fused_shard.py; one pair, no leftover passes), each
+      rank's band takes the same tail (K2, or the S assembly) on its
+      rows, and disp, cost and taps are gathered to the mesh's device.
     Returns (taps, disp, cost): disp and cost (N, H, W) float32 on the
     images' device, taps (N, H, 4, W) with `want_taps`, else None."""
     ups, vps = (u_p, v_p) if u_p.ndim == 4 else (u_p[None], v_p[None])
@@ -385,23 +389,67 @@ def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, w8=None,
                    and not (mgm == 2 and not use_weights))
     # with leftover passes the overcount folds on the dense volume
     # (fused.py:619, 647)
-    vol, nspaces = fused_planes(
-        lefts, rights, sides=pair_sides, L=L, groups=groups, mgm=mgm,
-        p1=p1, p2=p2, mode=mode, tmax=tmax,
-        kappa=0.0 if leftover else kappa, use_fh=use_fh, w8=w8,
-        lo_px=lo_px, hi_px=hi_px, fh_restrict=fh_restrict, npair=npair)
+    kw = dict(sides=pair_sides, L=L, groups=groups, mgm=mgm, p1=p1, p2=p2,
+              mode=mode, tmax=tmax, kappa=0.0 if leftover else kappa,
+              use_fh=use_fh, w8=w8, lo_px=lo_px, hi_px=hi_px,
+              fh_restrict=fh_restrict)
+    tail = dict(N=N, pair_sides=pair_sides, sides=sides, L=L, ndir=ndir,
+                mgm=mgm, p1=p1, p2=p2, mode=mode, trunc_dist=trunc_dist,
+                kappa=kappa, fix_overcount=fix_overcount, use_fh=use_fh,
+                want_taps=want_taps, s_lo=s_lo, s_hi=s_hi, lo_px=lo_px,
+                hi_px=hi_px)
+    if mesh is None:
+        vol, nspaces = fused_planes(lefts, rights, npair=npair, **kw)
+        del lefts, rights
+        return _solve_tail(vol, 0, nspaces=nspaces, npair=npair, ups=ups,
+                           vps=vps, w8=w8, leftover=leftover, **tail)
+    from ..parallel.fused_shard import sharded_fused_planes
+
+    if leftover or npair != 1:
+        raise NotImplementedError(
+            "row sharding of the fused branch takes one pair and ndir <= 8; "
+            "the dense mesh path (knight passes) is ROADMAP item 10a/10b")
+    bands, nspaces = sharded_fused_planes(lefts, rights, mesh=mesh, **kw)
     del lefts, rights
+    res = {k: _solve_tail(vol, r0, nspaces=nspaces, npair=1, **tail)
+           for k, (r0, vol) in bands.items()}
+    del bands
+    H = ups.shape[1]
+    return tuple(None if res[mesh.local[0]][i] is None
+                 else mesh.gather_rows({k: r[i] for k, r in res.items()}, H)
+                 for i in range(3))
+
+
+def _solve_tail(vol, r0: int, *, nspaces: int, N: int, npair: int,
+                pair_sides, sides, L: int, ndir: int, mgm: int, p1: float,
+                p2: float, mode: str, trunc_dist: float, kappa: float,
+                fix_overcount: bool, use_fh: bool, want_taps: bool,
+                s_lo=None, s_hi=None, lo_px=None, hi_px=None, ups=None,
+                vps=None, w8=None, leftover=()):
+    """mgm_solve_fused after K1 (or K4) on the rows r0 .. r0 + h - 1 of
+    the (nspaces * N, h, W, L) volume: K2, or the materialised sum with
+    the leftover passes (whole images only: ups/vps, w8) and the S
+    assembly.  The windows s_lo/s_hi, lo_px/hi_px hold every image row.
+    Returns (taps, disp, cost) of those rows."""
+    rows = slice(r0, r0 + vol.shape[1])
+
+    def band(a):
+        return None if a is None else a[:, rows]
+
+    per_pixel = lo_px is not None
     if not leftover and s_lo is None and not per_pixel:
         res = cuda_fused.wta(vol, nspaces=nspaces, sides=pair_sides,
                              npair=npair, want_taps=want_taps)
         return (res[2] if want_taps else None,) + res[:2]
+    s_lo, s_hi = band(s_lo), band(s_hi)
     lsum = assemble_groups(vol, nspaces=nspaces, N=N)
     del vol
     if leftover:
         cc = _dense_cc(ups, vps, sides=pair_sides, L=L, mode=mode,
                        trunc_dist=trunc_dist, lo_px=lo_px, hi_px=hi_px)
         part = aggregate(cc, w8, lo_px, hi_px, p1=p1, p2=p2, ndir=ndir,
-                         mgm=mgm, use_fh=use_fh, use_weights=use_weights,
+                         mgm=mgm, use_fh=use_fh,
+                         use_weights=w8 is not None,
                          fh_restrict=use_fh and per_pixel,
                          pids=tuple(leftover))
         if fix_overcount:
@@ -411,7 +459,7 @@ def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, w8=None,
         del part
     S, disp, cost = assemble_swta(lsum, s_lo, s_hi, sides=sides, L=L,
                                   ndir=ndir, fix_overcount=fix_overcount,
-                                  lo_px=lo_px, hi_px=hi_px)
+                                  lo_px=band(lo_px), hi_px=band(hi_px))
     if not want_taps:
         return None, disp, cost
     gmin = torch.tensor([g for g, _, _ in sides], dtype=torch.int32)

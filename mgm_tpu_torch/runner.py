@@ -67,7 +67,8 @@ def tiled_disparity(u: np.ndarray, v: np.ndarray, cfg: MGMConfig,
                     verbose: bool = False,
                     dmin_img: np.ndarray | None = None,
                     dmax_img: np.ndarray | None = None,
-                    batch: int | None = None, *, device="cuda") -> dict:
+                    batch: int | None = None, *, device="cuda",
+                    mesh=None) -> dict:
     """Solve a (H, W, C) scene pair tile by tile on `device`.
 
     Returns {'disp', 'cost'} scene-sized float32 arrays (left side) and
@@ -79,7 +80,9 @@ def tiled_disparity(u: np.ndarray, v: np.ndarray, cfg: MGMConfig,
     per-pixel disparity windows (-m/-M), cropped per tile; they solve
     tile by tile.  Otherwise the tiles of one tile row solve together in
     compute_disparity_batch calls of `batch` tiles, by default as many
-    as the row has and half the card's free memory holds."""
+    as the row has and half the card's free memory holds.  `mesh` (a
+    parallel.RowMesh) shards each tile's solve over its ranks' rows, one
+    tile at a time (mgm_tpu/runner.py:63)."""
     H, W, _ = u.shape
     if v.shape != u.shape:
         raise ValueError(f"rectified pairs share geometry: {u.shape} and "
@@ -96,7 +99,7 @@ def tiled_disparity(u: np.ndarray, v: np.ndarray, cfg: MGMConfig,
     # into batches
     ctx_h = min(H, tile + 2 * margin)
     ctx_w = min(W, tile + 2 * margin + pad_l + pad_r)
-    if dmin_img is not None:
+    if dmin_img is not None or mesh is not None:
         batch = 1
     elif batch is None:
         batch = _row_batch(cfg, len(_tile_starts(W, tile)), ctx_h, ctx_w,
@@ -128,11 +131,12 @@ def tiled_disparity(u: np.ndarray, v: np.ndarray, cfg: MGMConfig,
 
     for grp in groups:
         crops = [(job[4], job[5]) for job in grp]
-        if dmin_img is not None:
+        if dmin_img is not None or mesh is not None:
+            win = {} if dmin_img is None else dict(
+                dmin_img=dmin_img[crops[0]], dmax_img=dmax_img[crops[0]])
             res = compute_disparity(
                 u[crops[0]], v[crops[0]], cfg, device=device,
-                outputs=("disp", "cost"), dmin_img=dmin_img[crops[0]],
-                dmax_img=dmax_img[crops[0]])
+                outputs=("disp", "cost"), mesh=mesh, **win)
             res = {k: a[None] for k, a in res.items()}
         else:
             res = compute_disparity_batch(

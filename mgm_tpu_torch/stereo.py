@@ -20,13 +20,16 @@ branches take per-pixel -m/-M windows, TSGM_ITER (each iteration
 solves again with the same recursion windows and tightened S
 windows, as the JAX loop does) and the TSGM_DEBUG energy audit.
 `compute_disparity_batch` solves K pairs of one shape in one launch
-set (K1's and K2's pair axis).  Not ported: the mesh, the wire packing
-and the OOM re-route (ROADMAP "Not ported").
+set (K1's and K2's pair axis).  `compute_disparity(mesh=...)` shards
+the fused branch's recursion over the image rows of a
+parallel.RowMesh (K4, parallel/fused_shard.py): every rank runs the
+prep on the whole images, its band's recursion and the band's WTA (or
+S assembly), and the post stages run on the gathered maps, so every
+output is bitwise the unsharded run's.  The dense mesh path (NCC,
+ndir 16 under a mesh) is ROADMAP item 10a/10b.  Not ported: the wire
+packing and the OOM re-route (ROADMAP "Not ported").
 """
 from __future__ import annotations
-
-import os
-import tempfile
 
 import numpy as np
 import torch
@@ -41,6 +44,10 @@ from .ops.prefilter import apply_prefilter
 from .ops.refine import subpixel_refine, subpixel_refine_taps
 from .ops.weights import compute_weights
 from .solver import mgm_solve
+
+# where TSGM_DEBUG writes the energy image: the reference's fixed path
+# (mgm_print_energy.h:100-112, mgm_tpu/stereo.py:967)
+ENERGY_DUMP = "/tmp/ENERGY_L1trunc.tif"
 
 
 def _dense(cfg: MGMConfig) -> bool:
@@ -137,7 +144,7 @@ def _pixel_windows(dmin_img, dmax_img, cfg: MGMConfig, H: int, W: int,
 def compute_disparity(u: np.ndarray, v: np.ndarray, cfg: MGMConfig, *,
                       device="cuda", dmin_img: np.ndarray | None = None,
                       dmax_img: np.ndarray | None = None,
-                      outputs: tuple | None = None) -> dict:
+                      outputs: tuple | None = None, mesh=None) -> dict:
     """u, v: (H, W, C) float or uint8 arrays; dmin_img/dmax_img: (H, W)
     per-pixel disparity windows of the left image (-m/-M), or None.
     Runs on `device` (a torch device or its name; the GPU unless the
@@ -146,15 +153,27 @@ def compute_disparity(u: np.ndarray, v: np.ndarray, cfg: MGMConfig, *,
     side) and 'disp_right', 'cost_right', 'disp_nolr_right' when the LR
     check ran.  `outputs` restricts the returned keys.  With
     cfg.debug, each iteration prints the energy line and writes the
-    energy image to ENERGY_L1trunc.tif in the temporary directory, as
-    the reference does."""
+    energy image to ENERGY_DUMP (/tmp/ENERGY_L1trunc.tif), as the
+    reference does.  `mesh` (a parallel.RowMesh) shards the recursion
+    over the image rows of its ranks, which then run on the mesh's
+    devices (`device` is not used); the fused branch only (not NCC,
+    ndir <= 8)."""
     u = np.asarray(u)
     v = np.asarray(v)
     if u.ndim != 3 or u.shape != v.shape:
         raise ValueError(f"u and v must be (H, W, C) of one shape, got "
                          f"{u.shape} and {v.shape}")
+    if mesh is not None:
+        from .parallel.fused_shard import sharded_eligible
+
+        if not sharded_eligible(cfg.ndir, cfg.mgm, cfg.distance):
+            raise NotImplementedError(
+                f"compute_disparity(mesh=...): ndir {cfg.ndir}, "
+                f"{cfg.distance} needs the dense mesh path, ROADMAP item "
+                f"10a/10b, not ported yet")
+        device = mesh.device
     out = _solve(u[None], v[None], cfg, device=device, dmin_img=dmin_img,
-                 dmax_img=dmax_img, outputs=outputs)
+                 dmax_img=dmax_img, outputs=outputs, mesh=mesh)
     return {k: a[0] for k, a in out.items()}
 
 
@@ -181,11 +200,12 @@ def compute_disparity_batch(us, vs, cfg: MGMConfig, *, device="cuda",
 
 
 def _solve(us: np.ndarray, vs: np.ndarray, cfg: MGMConfig, *, device,
-           dmin_img=None, dmax_img=None, outputs=None) -> dict:
+           dmin_img=None, dmax_img=None, outputs=None, mesh=None) -> dict:
     """The pipeline on K pairs of one shape, (K, H, W, C) stacks, every
     plane pair-major (pair k's side s is plane k * n_sides + s).  The
     entry points hand per-pixel windows, TSGM_ITER > 1, TSGM_DEBUG and
-    NCC over one pair at a time.  Returns (K, H, W) float32 arrays."""
+    NCC over one pair at a time; `mesh` shards the fused recursion of
+    one pair.  Returns (K, H, W) float32 arrays."""
     K, H, W, C = us.shape
     n_sides = 2 if cfg.test_lr else 1
     per_pixel = dmin_img is not None or dmax_img is not None
@@ -268,7 +288,7 @@ def _solve(us: np.ndarray, vs: np.ndarray, cfg: MGMConfig, *, device,
                 use_fh=cfg.use_trunc_linear,
                 want_taps=cfg.refinement != "none",
                 lo_px=lo_idx if per_pixel else None,
-                hi_px=hi_idx if per_pixel else None)
+                hi_px=hi_idx if per_pixel else None, mesh=mesh)
         if cfg.debug:
             # the per-iteration energy audit (TSGM_DEBUG,
             # mgm_print_energy.h) on the left side's dense volume
@@ -278,8 +298,7 @@ def _solve(us: np.ndarray, vs: np.ndarray, cfg: MGMConfig, *, device,
                 ncc_win=cfg.census_ncc_win)
             print_solution_energy(
                 disp[0], cc0, lo_idx[0], hi_idx[0], gmins[0], p1, p2,
-                dump_path=os.path.join(tempfile.gettempdir(),
-                                       "ENERGY_L1trunc.tif"))
+                dump_path=ENERGY_DUMP)
             del cc0
         if cfg.refinement != "none":
             # the fused branch hands the (N, H, 4, W) taps, not S

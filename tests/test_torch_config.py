@@ -76,7 +76,8 @@ def test_port_imports_no_jax():
             "mgm_tpu_torch.ops.wavefront, mgm_tpu_torch.ops.refine, "
             "mgm_tpu_torch.ops.census, mgm_tpu_torch.ops.prefilter, "
             "mgm_tpu_torch.ops.energy, mgm_tpu_torch.runner, "
-            "mgm_tpu_torch.utils.checkpoint; "
+            "mgm_tpu_torch.utils.checkpoint, mgm_tpu_torch.utils.profiling, "
+            "mgm_tpu_torch.parallel, mgm_tpu_torch.parallel.distributed; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mgm_tpu' "
             "or m.startswith('mgm_tpu.')]; "

@@ -12,8 +12,6 @@ the truncated-linear potential at P2 20000 (costs near 1e5, where a
 cost near 0 sums terms of that size) also to 3e-5 of the largest finite
 cost.
 """
-import tempfile
-
 import numpy as np
 import pytest
 import torch
@@ -245,9 +243,12 @@ def test_tsgm_iter(pair_d, no_packout, name, iters, pp):
 
 
 def _energy_dumps_to(monkeypatch, tmp_path):
-    """mgm_tpu writes its TSGM_DEBUG image to the fixed path its stereo
-    module names, the port to the temporary directory: both go to
-    tmp_path here (mgm_tpu's under jax_ENERGY_L1trunc.tif)."""
+    """Both packages write their TSGM_DEBUG image to the reference's
+    fixed path, /tmp/ENERGY_L1trunc.tif (the port's is
+    stereo.ENERGY_DUMP): both go to tmp_path here (mgm_tpu's under
+    jax_ENERGY_L1trunc.tif)."""
+    from mgm_tpu_torch import stereo as tstereo
+
     from mgm_tpu.ops import energy as jenergy
 
     real = jenergy.print_solution_energy
@@ -257,7 +258,8 @@ def _energy_dumps_to(monkeypatch, tmp_path):
                     **k)
 
     monkeypatch.setattr(jenergy, "print_solution_energy", redirected)
-    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    monkeypatch.setattr(tstereo, "ENERGY_DUMP",
+                        str(tmp_path / "ENERGY_L1trunc.tif"))
 
 
 def test_cli_matches_mgm_tpu_cli(tmp_path, monkeypatch, pair, no_packout):
