@@ -62,6 +62,11 @@ from chip_smoke import (DMAX, DMIN, H, L, SAT_DMAX, SAT_DMIN,  # noqa: E402
                         _walls)
 
 
+# K1's device kernels: the cluster launch, or, in a checkout from before
+# K1's cluster redesign (--repo), the per-front kernels
+K1_KERNELS = ("fused_wavefront_cluster", "sgm_front_kernel", "fh_front_kernel")
+
+
 class _Stages:
     """Wraps module attributes so each call is timed between two
     synchronizes (a label indented deeper is part of the one above)."""
@@ -310,13 +315,16 @@ def main(argv=None) -> int:
                 print(f"   {k:<28} {st.ms[k]:9.3f} ms")
         print(f"   {'rest (host, post, fetch)':<28} "
               f"{staged - top_level:9.3f} ms")
-        k1 = sum(ms for k, (ms, _) in by_name.items()
-                 if "front_kernel" in k and "band_front" not in k)
+        k1 = [(ms, n) for k, (ms, n) in by_name.items()
+              if any(c in k for c in K1_KERNELS)]
+        k1_ms, k1_n = (sum(x[i] for x in k1) / args.reps for i in (0, 1))
         k4 = sum(ms for k, (ms, _) in by_name.items() if "band_front" in k)
-        report["runs"][name]["k1_front_kernels_ms"] = k1 / args.reps
+        report["runs"][name]["k1_kernels_ms"] = k1_ms
+        report["runs"][name]["k1_launches"] = k1_n
         report["runs"][name]["k4_front_kernels_ms"] = k4 / args.reps
-        print(f"   K1's front kernels: {k1 / args.reps:.3f} ms of device time "
-              f"a run; K4's: {k4 / args.reps:.3f} ms")
+        print(f"   K1's kernels: {k1_ms:.3f} ms of device time a run in "
+              f"{k1_n:.0f} launches; K4's front kernels: "
+              f"{k4 / args.reps:.3f} ms")
         print(f"   profiler: device busy {busy:.4f} of the host wall "
               f"({pwall / args.reps:.3f} ms a run profiled), device window "
               f"{window / args.reps:.3f} ms a run")

@@ -18,9 +18,13 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     synthetic pair with a known disparity field (-120..30), through both
     kernels (launch counters), with the recovery thresholds checked, the
     same pipeline on a crop equal to its CPU run, peak device memory and
-    the median of REPS runs in MP*disp/s (2*H*W*L / s);
+    the median of REPS runs in MP*disp/s (2*H*W*L / s); then the device
+    kernel launches of K1 in one run, counted by torch.profiler: one a
+    scan direction (2);
  5. K1 and K2 against their plain versions at cfg1's full shape (the
-    synthetic pair, 700x500, L = 151, both LR sides): bitwise equal;
+    synthetic pair, 700x500, L = 151, both LR sides): bitwise equal, K1
+    in each of RACE_RUNS runs (a missing synchronisation shows as a
+    race);
  6. the dense path's kernels K6 (skew), K5 (wavefront scan) and K7
     (unskew) against their plain versions on a 64-row strip, 700 wide,
     L = 151, both LR problems: SGM TSGM 2 at slope 1 and 2, weighted FH
@@ -60,7 +64,8 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     and V groups (census, FH);
 15. K1 and K2 (+ taps) against their plain versions at cfg2's full
     shape (census_tl over -120..30: 3x3 census words, FH, ndir 8,
-    TSGM 3, A/B at slope 2 and V, both LR sides): bitwise equal; then
+    TSGM 3, A/B at slope 2 and V, both LR sides): bitwise equal, K1 in
+    each of RACE_RUNS runs; then
     each one's time beside its plain version's, K2's beside torch.min,
     and their bounds: the kernels' record; then the same check at
     cfg4's full shape (sobelx_tl: AD on 3 float channels truncated at
@@ -97,8 +102,8 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     own compute_disparity on the card, the launches one pair's, the
     median wall beside the sequential loop's; K1 and K2 (+ taps) against
     their plain versions on cfg3_b8's batch (K1's pair axis, K2's batch
-    table): bitwise equal; then K1's time per front at K = 8 against
-    K = 1;
+    table): bitwise equal, K1 in each of RACE_RUNS runs; then K1's time
+    per front at K = 8 against K = 1;
 23. cfg3_scene: an 8x8 mosaic of one synthetic satellite pair
     (2232x2168) through runner.tiled_disparity(tile=512, margin=64,
     batch=5): 25 tiles, bitwise equal to batch=1, the median wall in
@@ -142,8 +147,10 @@ cfg1_mM_truth8 (phase 20) for K1, the two mgm_o runs, the NCC run
 (phases 7-8) and ncc_iter3 (phase 21) for K5/K6/K7, full_16dir (phase
 12) for K1, K5-K8, and the sharded rows (phase 25) for K4 and K2;
 `launches` is their sum.  K4's times and bound are the sharded cfg1
-recursion's over 2 ranks (phase 24).  One K1 or K5 call launches one small
-kernel per wavefront.  K1's and K2's times and bounds are cfg2's
+recursion's over 2 ranks (phase 24).  One K1 call is one cluster launch
+that steps every front of its scan direction inside the kernel; one K5
+call launches one small kernel per wavefront.  K1's and K2's times and
+bounds are cfg2's
 (phase 15).  `bound_ms` is the larger of the bytes the call must move
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100
 SXM's published peaks).
@@ -186,6 +193,7 @@ DENSE_KERNELS = ("wavefront_scan", "skew", "unskew")
 FUSED_KERNELS = ("fused_wavefront", "wta")
 CENSUS_WORDS = 2                 # phase 11's packed census words a pixel
 NEW_REPS = 3                     # timed runs of phases 20-26
+RACE_RUNS = 5                    # K1 runs held against one plain run
 SHARD_KERNELS = ("fused_block", "wta")
 # cfg3 (the satellite preset): 279x271x1 pairs, disparities -22..19
 SAT_H, SAT_W, SAT_DMIN, SAT_DMAX = 271, 279, -22, 19
@@ -362,6 +370,22 @@ def _event_ms_fresh(prep, fn, reps: int, warm: bool = True):
     return total / reps, out
 
 
+def _device_launches(fn, name: str) -> int:
+    """The device kernels whose name holds `name` that one fn() run
+    launches, by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and name in e.name)
+
+
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     """(bound_ms, bound_by) for a call moving `nbytes` and doing `ops`
     float32 operations."""
@@ -526,12 +550,12 @@ def _dense_strip(case, rng, dev):
     return errs, plan
 
 
-def _fused_check(phase, cases, errs, u, v):
+def _fused_check(phase, cases, errs, u, v, runs=1):
     """K1 and K2 (with the subpixel taps) against their plain versions
     on the uint8 pair (u, v), both LR sides, for each (label, cfg,
-    group) case (group None: every fused group of the solve); folds the
-    max abs errors into `errs` and returns each case's plain K1 time
-    (ms, one run)."""
+    group) case (group None: every fused group of the solve), K1 in
+    each of `runs` runs; folds the max abs errors into `errs` and
+    returns each case's plain K1 time (ms, one run)."""
     import torch
     from mgm_tpu_torch.ops import cuda_fused, fused
 
@@ -545,6 +569,11 @@ def _fused_check(phase, cases, errs, u, v):
             cuda_fused.fused_wavefront_plain, cfg, inp, group))
         plain_ms.append(t)
         e1 = _compare(f"K1 {label} group={group}", got, want)
+        for run in range(1, runs):
+            again, _ = _planes(cuda_fused.fused_wavefront, cfg, inp, group)
+            e1 = max(e1, _compare(f"K1 {label} group={group} run {run}",
+                                  again, want))
+            del again
         del want
         sides = inp["sides"]
         k2 = cuda_fused.wta(got, nspaces=ns, sides=sides, want_taps=True)
@@ -559,7 +588,8 @@ def _fused_check(phase, cases, errs, u, v):
         if group is not None:
             groups = groups[group:group + 1]
         what = ", ".join(f"slope {g[0]} {'+'.join(g[1])}" for g in groups)
-        print(f"[{phase}] K1 == plain at {u.shape[0]}x{u.shape[1]}x3, "
+        print(f"[{phase}] K1 == plain at {u.shape[0]}x{u.shape[1]}x3"
+              f"{f' in each of {runs} runs' if runs > 1 else ''}, "
               f"L={inp['L']}, {label}: ndir {cfg.ndir} TSGM {cfg.mgm}, "
               f"{cfg.distance} ({inp['lefts'].shape[-1]} channels a pixel), "
               f"{'FH' if cfg.use_trunc_linear else 'SGM'}, weights "
@@ -580,7 +610,7 @@ def _fused_timing(phase, tag, cfg, u, v, errs, card):
     from mgm_tpu_torch.ops import cuda_fused
 
     plain_ms = {"fused_wavefront": _fused_check(phase, ((tag, cfg, None),),
-                                                errs, u, v)[0]}
+                                                errs, u, v, RACE_RUNS)[0]}
     inp = _k1_inputs(cfg, u, v)
     ms = {"fused_wavefront": _event_ms(lambda: _planes(
         cuda_fused.fused_wavefront, cfg, inp), 3)}
@@ -705,7 +735,7 @@ def _batch_k1_inputs(cfg, us, vs, K):
 
 
 def _fronts(groups, R, C):
-    """Front kernels of one K1 pass over the groups at R x C."""
+    """Fronts of one K1 pass over the groups at R x C."""
     from mgm_tpu_torch.ops import fused
 
     n = 0
@@ -977,10 +1007,19 @@ def main(argv=None) -> int:
     got = _stereo_path("4", "cfg1", cfg, pair, FUSED_KERNELS, card, REPS)
     for n in got:
         by_path[n]["cfg1"] = got[n]
+    k1_dev = _device_launches(lambda: compute_disparity(u, v, cfg,
+                                                        device="cuda"),
+                              "fused_wavefront_cluster")
+    print(f"[4] K1's device kernel launches in one cfg1 run "
+          f"(torch.profiler): {k1_dev} (one a scan direction: "
+          f"{got['fused_wavefront']} wrapper calls)", flush=True)
+    if k1_dev != got["fused_wavefront"]:
+        raise AssertionError(f"K1 launched {k1_dev} device kernels in "
+                             f"{got['fused_wavefront']} calls")
 
     # ---- 5. K1 and K2 at cfg1's full shape ---------------------------
     # (phase 15 times them at cfg2, the numbers of the kernels' record)
-    _fused_check("5", (("cfg1", cfg, None),), errs, u, v)
+    _fused_check("5", (("cfg1", cfg, None),), errs, u, v, RACE_RUNS)
     ms, plain_ms, library_ms, bounds = {}, {}, {}, {}
 
     fl, fr = (os.path.join(args.data, f"fountain23-im{s}.png")
@@ -1252,7 +1291,7 @@ def main(argv=None) -> int:
                                         inp, group), 3)
         print(f"[14] K1 {tag} group of ndir {kcfg.ndir} TSGM {kcfg.mgm} at "
               f"{H}x{W}, L={L}, {2 * len(g[1])} planes: {gms:.3f} ms for "
-              f"{fronts} front kernels = {gms / fronts * 1e3:.3f} us a front "
+              f"{fronts} fronts = {gms / fronts * 1e3:.3f} us a front "
               f"on {card}", flush=True)
         del inp
 
@@ -1330,13 +1369,14 @@ def main(argv=None) -> int:
     del inp["lo_px"], inp["hi_px"]
     k1_c = _event_ms(lambda: _planes(cuda_fused.fused_wavefront, cfg, inp),
                      3)
+    c_bound = _k1_bound(cfg, inp, 2)
     del inp, full_lo
-    print(f"[20] K1 at cfg1's full shape ({H}x{W}, L={L}, {fronts} front "
-          f"kernels): per-pixel windows {k1_mm:.3f} ms = "
-          f"{k1_mm / fronts * 1e3:.3f} us a front, constant windows "
-          f"{k1_c:.3f} ms = {k1_c / fronts * 1e3:.3f} us a front; bound "
-          f"with the windows read {mm_bound[0]:.3f} ms ({mm_bound[1]}) on "
-          f"{card}", flush=True)
+    print(f"[20] K1 at cfg1's full shape ({H}x{W}, L={L}, {fronts} "
+          f"fronts): per-pixel windows {k1_mm:.3f} ms = "
+          f"{k1_mm / fronts * 1e3:.3f} us a front, bound with the windows "
+          f"read {mm_bound[0]:.3f} ms ({mm_bound[1]}); constant windows "
+          f"{k1_c:.3f} ms = {k1_c / fronts * 1e3:.3f} us a front, bound "
+          f"{c_bound[0]:.3f} ms ({c_bound[1]}) on {card}", flush=True)
     # K1 against its plain version at cfg1_mM's full shape, under the
     # truth +- 8 windows as compute_disparity hands them to K1
     flo, fhi = stereo._pixel_windows(*wins["cfg1_mM_truth8"], cfg, H, W,
@@ -1455,6 +1495,10 @@ def main(argv=None) -> int:
     t, (want, _) = _event_once(lambda: fused.fused_planes(
         lefts, rights, wavefront=cuda_fused.fused_wavefront_plain, **kw))
     e1 = _compare("K1 cfg3_b8 batch", got, want)
+    for run in range(1, RACE_RUNS):
+        again, _ = fused.fused_planes(lefts, rights, **kw)
+        e1 = max(e1, _compare(f"K1 cfg3_b8 batch run {run}", again, want))
+        del again
     del want
     k2 = cuda_fused.wta(got, nspaces=ns, sides=kw["sides"], npair=8,
                         want_taps=True)
@@ -1465,7 +1509,8 @@ def main(argv=None) -> int:
              for what, a, b in zip(("disp", "cost", "taps"), k2, ref))
     errs["fused_wavefront"] = max(errs["fused_wavefront"], e1)
     errs["wta"] = max(errs["wta"], e2)
-    print(f"[22] K1 == plain on cfg3_b8's batch (8 pairs, 16 sides, "
+    print(f"[22] K1 == plain in each of {RACE_RUNS} runs on cfg3_b8's "
+          f"batch (8 pairs, 16 sides, "
           f"{ns} spaces, {SAT_H}x{SAT_W}, L={L_sat}): {TOL}, max abs err "
           f"{e1}, plain {t:.1f} ms; K2 + taps == plain on those planes: max "
           f"abs err {e2}", flush=True)
@@ -1475,7 +1520,7 @@ def main(argv=None) -> int:
     k1_b8 = _event_ms(lambda: fused.fused_planes(lefts, rights, **kw), 3)
     lefts, rights, kw = _batch_k1_inputs(sat, us32, vs32, 1)
     k1_b1 = _event_ms(lambda: fused.fused_planes(lefts, rights, **kw), 3)
-    print(f"[22] K1 at the satellite geometry ({nf} front kernels): K = 8 "
+    print(f"[22] K1 at the satellite geometry ({nf} fronts): K = 8 "
           f"{k1_b8:.3f} ms = {k1_b8 / nf * 1e3:.3f} us a front, K = 1 "
           f"{k1_b1:.3f} ms = {k1_b1 / nf * 1e3:.3f} us a front on {card}",
           flush=True)

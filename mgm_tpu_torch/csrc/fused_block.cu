@@ -3,10 +3,10 @@
 // Replaces the TPU kernel mgm_tpu/ops/pallas_fused.py:_block_kernel
 // (launched by fused_block, pallas_fused.py:626), which the row-sharded
 // pipeline (mgm_tpu/parallel/fused_shard.py) steps over G-front blocks.
-// Here it is K1's front (csrc/fused_front.cuh) in instances of its own
-// (BAND): the same arithmetic in the same order at every pixel, so a
-// sharded run's volume is bitwise the single-device one's.  What the
-// band adds:
+// Here it is the per-front design K1 had before its cluster redesign
+// (csrc/fused_front.cuh): K1's arithmetic in the same order at every
+// pixel, so a sharded run's volume is bitwise the single-device one's.
+// What the band adds:
 //   - the grid's rows are the band's local rows (plus aprons); the
 //     front map, the border rule and the images use image rows r0 + r
 //     against the image's R, and rows outside [0, R) leave at once;
@@ -26,7 +26,7 @@
 template <int MODE, bool FH, bool W, bool G>
 __global__ void band_front_kernel(const BandParams bp, int t, int slot_t,
                                   int u) {
-  front<MODE, FH, W, G, true>(bp.w, bp.b, t, slot_t, u);
+  front<MODE, FH, W, G>(bp.w, bp.b, t, slot_t, u);
 }
 
 extern "C" int mgm_band_params_size(void) { return (int)sizeof(BandParams); }

@@ -1,18 +1,12 @@
-// K1's front: fused cost + the MGM recursion of one front of one scan
-// direction over every (row, plane) block of a launch.  K1
-// (csrc/fused_wavefront.cu) and K4 (csrc/fused_block.cu) instantiate
-// it; the header comment of fused_wavefront.cu describes the
-// computation and its numerics.
+// K4's front: fused cost + the MGM recursion of one front of one scan
+// direction over every (band row, plane) block of a launch, one thread
+// a label.  It is the per-front design K1 had before its cluster
+// redesign (csrc/fused_wavefront.cu, whose header comment describes the
+// computation and its numerics); K4 (csrc/fused_block.cu) instantiates
+// it, and chip_smoke.py holds K4's bands bitwise against K1's volume.
 #pragma once
 
 #include "mgm_device.cuh"
-
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = nmin(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
 
 // The minimum of v over the block (every thread gets it); `red` holds
 // one value a warp.  Every thread of the block must call it.
@@ -36,28 +30,26 @@ __device__ __forceinline__ float block_min(float v, float* red) {
 // took the SGM instances from 32 to 48 registers and cfg1's fronts
 // 11 % longer on the H100.
 //
-// BAND (K4, csrc/fused_block.cu) runs the front on one rank's band of
-// rows under row sharding: block row r is the band's local row (the
-// ring's and, past out_off, the output's), image row b.r0 + r (the
-// front map, the border rule and the images use image rows); a dep row
-// outside the band reads the neighbour's halo track at step u - lag,
-// or +inf without one; row b.ship_row writes its new front into the
-// ship track.  K1's instances (BAND false) compile without any of it:
-// a run-time branch in K1 once cost 11 %.
-template <int MODE, bool FH, bool W, bool G, bool BAND>
+// The front runs on one rank's band of rows under row sharding: block
+// row r is the band's local row (the ring's and, past out_off, the
+// output's), image row b.r0 + r (the front map, the border rule and the
+// images use image rows); a dep row outside the band reads the
+// neighbour's halo track at step u - lag, or +inf without one; row
+// b.ship_row writes its new front into the ship track.
+template <int MODE, bool FH, bool W, bool G>
 __device__ __forceinline__ void front(const WaveParams& p,
                                       const BandTail& b, int t, int slot_t,
                                       int u) {
   __shared__ float buf[FH ? MGM_MAX_LABELS : 1];
   __shared__ float red[32];
   const int r = blockIdx.x;              // the ring's row
-  const int gr = BAND ? b.r0 + r : r;    // the image row
-  const int RR = BAND ? b.Rl : p.R;      // rows of the ring
+  const int gr = b.r0 + r;               // the image row
+  const int RR = b.Rl;                   // rows of the ring
   const int i = blockIdx.y;
   const int k = G ? (int)blockIdx.z : 0;  // image pair
   const int l = threadIdx.x;
   // rows above the image or past it (an apron, the band's padding)
-  if (BAND && (gr < 0 || gr >= p.R)) return;
+  if (gr < 0 || gr >= p.R) return;
   const int num = t - p.plane_a0[i] + p.plane_ssgn[i] * p.slope * gr;
   // the whole block leaves together: the row has no pixel on front t
   if (num < 0 || num % p.fstep != 0) return;
@@ -129,7 +121,7 @@ __device__ __forceinline__ void front(const WaveParams& p,
         const int rr = r - p.combo_roll[ci];
         const float* h;
         float mk;
-        if (BAND && (rr < 0 || rr >= RR)) {
+        if (rr < 0 || rr >= RR) {
           // another band's row: the neighbour's shipped front, its
           // minimum recomputed (a minimum is exact in any order)
           if (b.halo) {
@@ -144,7 +136,7 @@ __device__ __forceinline__ void front(const WaveParams& p,
           h = hist + row * p.L;
           mk = mins[row];
         }
-        const bool hv = !BAND || h != nullptr;
+        const bool hv = h != nullptr;
         float p1w = p.p1, p2w = p.p2;
         if constexpr (W) {  // this dep's weight at the pixel updated
           const float d = p.w8[pix * 8 + p.rec_wch[m][j]];
@@ -173,10 +165,8 @@ __device__ __forceinline__ void front(const WaveParams& p,
     }
     const size_t hrow = ((size_t)slot_t * p.Ml + m) * RR + r;
     if (act) hist[hrow * p.L + l] = nv;
-    if constexpr (BAND) {
-      if (b.ship && r == b.ship_row && act)
-        b.ship[((size_t)u * p.Ml + m) * p.L + l] = nv;
-    }
+    if (b.ship && r == b.ship_row && act)
+      b.ship[((size_t)u * p.Ml + m) * p.L + l] = nv;
     // minimum over all labels of the new front, for the next fronts
     float mv = warp_min(act ? nv : INFINITY);
     if ((l & 31) == 0) red[l >> 5] = mv;
@@ -189,12 +179,8 @@ __device__ __forceinline__ void front(const WaveParams& p,
     sum = kr ? sum + nv : nv;
   }
   if (!act) return;
-  int orow = r, OR = p.R;  // the output's row and rows
-  if constexpr (BAND) {
-    orow = r - b.out_off;
-    OR = b.out_R;
-    if (orow < 0 || orow >= OR) return;
-  }
+  const int orow = r - b.out_off, OR = b.out_R;  // the output's row, rows
+  if (orow < 0 || orow >= OR) return;
   float o = nrec ? sum : 0.f;
   if (p.plane_fold[i]) o = o + p.kappa * cc;
   const size_t oi =

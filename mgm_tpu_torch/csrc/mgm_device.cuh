@@ -1,8 +1,10 @@
 // Device functions shared by the port's kernels: the pointwise matching
 // costs (K1 computes them in flight, K8 into a volume) and the MGM
-// messages (K1 and K5).  One definition each, so the kernels agree with
+// messages (K1, K4 and K5).  One definition each, so the kernels agree with
 // each other and with the plain PyTorch versions they are held against
-// (ops/cuda_cost.pointwise_cost, ops/wavefront._sgm_msg / _fh_msg).
+// (ops/cuda_cost.pointwise_cost, ops/wavefront._sgm_msg / _fh_msg);
+// K1 runs fh_msg's doubling in registers across a warp's lanes
+// (csrc/fused_wavefront.cu), step for step.
 // Built with --fmad=false and no fast math: every sum and product
 // rounds on its own, and inf/NaN behave as IEEE says.
 #pragma once
@@ -22,13 +24,40 @@ __device__ __forceinline__ float nmin(float a, float b) {
   return r;
 }
 
+// The NaN-keeping minimum of v over the warp (every lane gets it).
+__device__ __forceinline__ float warp_min(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = nmin(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// One channel's term of the ad / sd cost: |u - v|, squared for sd.
+__device__ __forceinline__ float ad_term(int mode, float u, float v) {
+  const float d = fabsf(u - v);
+  return mode == MGM_COST_SD ? d * d : d;
+}
+
+// One channel's Birchfield-Tomasi term (btad; squared for btsd) from
+// the left pixel's I, Imin, Imax and the right pixel's, with a
+// NaN-keeping minimum (torch.minimum's semantics; the zero signs it may
+// differ in vanish in the abs).
+__device__ __forceinline__ float bt_term(int mode, float il, float umin,
+                                         float umax, float ir, float vmin,
+                                         float vmax) {
+  const float dlr = -nmin(nmin(0.f, -(il - vmax)), -(vmin - il));
+  const float drl = -nmin(nmin(0.f, -(ir - umax)), -(umin - ir));
+  const float bt = fabsf(nmin(dlr, drl));
+  return mode == MGM_COST_BTSD ? bt * bt : bt;
+}
+
 // Raw cost of one (pixel, label) pair (mgm_costvolume.h:19-133): the
 // left image's pixel at element offset `up`, the right image's at `vp`,
-// nch channels each.  ad/sd: channels summed left to right; census
-// (int32 words): popcount of the XOR'd words times inv_nw = 1/nwords;
-// btad/btsd: Birchfield-Tomasi from [I, Imin, Imax] channel blocks
-// (nch = 3 * channels), with a NaN-keeping minimum (torch.minimum's
-// semantics; the zero signs it may differ in vanish in the abs).
+// nch channels each.  ad/sd: the channels' terms summed left to right;
+// census (int32 words): popcount of the XOR'd words times inv_nw =
+// 1/nwords; btad/btsd: the terms of the [I, Imin, Imax] channel blocks
+// (nch = 3 * channels) summed left to right.  K1 sums the same terms in
+// the same order for a warp's labels at once (csrc/fused_wavefront.cu
+// slot_costs).
 __device__ __forceinline__ float pointwise_cost(int mode, const void* left,
                                                 const void* right, size_t up,
                                                 size_t vp, int nch,
@@ -45,20 +74,15 @@ __device__ __forceinline__ float pointwise_cost(int mode, const void* left,
   const float* v = (const float*)right + vp;
   if (mode == MGM_COST_AD || mode == MGM_COST_SD) {
     for (int c = 0; c < nch; ++c) {
-      float d = fabsf(u[c] - v[c]);
-      if (mode == MGM_COST_SD) d = d * d;
+      const float d = ad_term(mode, u[c], v[c]);
       acc = c ? acc + d : d;
     }
     return acc;
   }
   const int C = nch / 3;
   for (int c = 0; c < C; ++c) {
-    const float il = u[c], umin = u[C + c], umax = u[2 * C + c];
-    const float ir = v[c], vmin = v[C + c], vmax = v[2 * C + c];
-    const float dlr = -nmin(nmin(0.f, -(il - vmax)), -(vmin - il));
-    const float drl = -nmin(nmin(0.f, -(ir - umax)), -(umin - ir));
-    float bt = fabsf(nmin(dlr, drl));
-    if (mode == MGM_COST_BTSD) bt = bt * bt;
+    const float bt = bt_term(mode, u[c], u[C + c], u[2 * C + c], v[c],
+                             v[C + c], v[2 * C + c]);
     acc = c ? acc + bt : bt;
   }
   return acc;

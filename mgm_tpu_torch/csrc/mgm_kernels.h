@@ -43,8 +43,8 @@ struct WaveParams {
   // (col = (t - a0 + ssgn * slope * r) / fstep, the row sitting out
   // fronts where that does not divide), side, whether it folds
   // kappa*CC, and the recursions that sum into it, in recursion order.
-  // The small tables are bytes: the struct goes with every front
-  // launch, and bytes keep it at 888 (int tables: 2,708).
+  // The small tables are bytes: the struct goes with every launch (K4:
+  // every front), and bytes keep it at 888 (int tables: 2,708).
   int plane_gmin[MGM_MAX_PLANES], plane_lo[MGM_MAX_PLANES];
   int plane_hi[MGM_MAX_PLANES], plane_a0[MGM_MAX_PLANES];
   signed char plane_side[MGM_MAX_PLANES], plane_ssgn[MGM_MAX_PLANES];
@@ -58,6 +58,15 @@ struct WaveParams {
   unsigned char rec_border[MGM_MAX_RECS];
   // combo k: front lag and row roll (the neighbour row is r - roll)
   signed char combo_lag[MGM_MAX_COMBOS], combo_roll[MGM_MAX_COMBOS];
+};
+
+// K1's launch plan (ops/cuda_fused.k1_plan): one cluster of `cluster`
+// CTAs a (pair, plane) unit, CTA x holding rows x*rows .. x*rows +
+// rows - 1 (fewer in the last), `warps` warps each; `lanes` labels a
+// lane (the instance: 2, 5, 6 or 32) and `smem` bytes of dynamic
+// shared memory a CTA (at least its rows' int counters).
+struct K1Plan {
+  int cluster, rows, warps, lanes, smem;
 };
 
 // K4's band of rows under row sharding (parallel/fused_shard.py).

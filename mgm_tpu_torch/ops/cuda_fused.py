@@ -8,7 +8,11 @@ plain PyTorch version and a launch counter:
      recursion over every (side x space) plane of a launch, for every
      pointwise cost family, the SGM or truncated-linear (FH) potential,
      optional edge weights, constant or per-pixel label windows (with
-     the FH window restriction) and a batch of image pairs.
+     the FH window restriction) and a batch of image pairs, in one
+     cluster launch: a thread-block cluster a (pair, plane), its CTAs
+     splitting the rows into bands (`k1_plan`), a warp a row, the
+     fronts stepped inside the kernel, each row waiting only for its
+     neighbour rows' counts of finished fronts.
   K2 `wta` (csrc/wta.cu) replaces pallas_fused._wta_kernel: the sum of
      the spaces, the windowed winner-take-all and optionally the four
      S taps of the subpixel fits, for a batch of pairs.
@@ -17,8 +21,8 @@ plain PyTorch version and a launch counter:
      rank's band of rows under row sharding (parallel/fused_shard.py),
      the ring carried from block to block, rows beyond the band read
      from the neighbour's halo track and the band's edge row shipped.
-     It is K1's front code (csrc/fused_front.cuh) in instances of its
-     own, so its arithmetic is K1's at every pixel.
+     It keeps K1's per-front design (csrc/fused_front.cuh: one launch a
+     front, one thread a label), with K1's arithmetic at every pixel.
 
 The per-label cost and the messages are defined once on each side:
 csrc/mgm_device.cuh on the card (shared with K5 and K8), and
@@ -50,12 +54,12 @@ layout and skips them.
 A batch of `npair` image pairs shares one table of (side, space)
 planes: the images are (npair * nsides, R, C, nch), pair-major, and the
 volume keeps the space-major order over all N = npair * nsides sides,
-plane space * N + side; K1 runs the pair as a grid axis (a batch
-launches as many fronts as one pair), K2 takes side n's window from
-entry n % nsides of its table.
+plane space * N + side; K1 runs every pair's clusters in its one
+launch, K2 takes side n's window from entry n % nsides of its table.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -69,6 +73,13 @@ from .wavefront import _fh_msg, _sgm_msg
 # the limits of csrc/mgm_kernels.h
 MAX_PLANES, MAX_RECS, MAX_COMBOS, MAX_RANKS = 8, 32, 16, 4
 MAX_SIDES, MAX_LABELS = 16, 1024
+# K1's instances (csrc/fused_wavefront.cuh k1_max_threads): (most labels,
+# labels a lane, most warps a CTA: 64 registers a thread up to 6 labels
+# a lane, 255 at 32)
+K1_LANES = ((64, 2, 32), (160, 5, 32), (192, 6, 32), (MAX_LABELS, 32, 8))
+MAX_CLUSTER = 16           # CTAs a cluster (the non-portable size)
+SMEM_PER_CTA = 232_448     # bytes of shared memory a CTA may use
+H100_SMS = 132             # an H100 SXM's streaming multiprocessors
 
 
 class _WaveParams(ctypes.Structure):
@@ -94,6 +105,13 @@ class _WaveParams(ctypes.Structure):
            ("combo_roll", ctypes.c_int8 * MAX_COMBOS)])
 
 
+K1Plan = collections.namedtuple("K1Plan", "cluster rows warps lanes smem")
+
+
+class _K1Plan(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in K1Plan._fields]
+
+
 class _BandParams(ctypes.Structure):
     _fields_ = ([("w", _WaveParams), ("halo", ctypes.c_void_p),
                  ("ship", ctypes.c_void_p)]
@@ -116,18 +134,23 @@ def _lib() -> ctypes.CDLL:
     """The kernel library with its entry points typed and the parameter
     structs checked against the C layout."""
     lib = _build.load()
-    for name, size_name, struct in (
-            ("mgm_fused_wavefront", "mgm_wave_params_size", _WaveParams),
-            ("mgm_fused_block", "mgm_band_params_size", _BandParams),
-            ("mgm_wta", "mgm_wta_params_size", _WtaParams)):
+    for name, structs in (("mgm_fused_wavefront", (_WaveParams, _K1Plan)),
+                          ("mgm_fused_block", (_BandParams,)),
+                          ("mgm_wta", (_WtaParams,))):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
+        fn.argtypes = ([ctypes.POINTER(st) for st in structs]
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    for size_name, struct in (("mgm_wave_params_size", _WaveParams),
+                              ("mgm_k1_plan_size", _K1Plan),
+                              ("mgm_band_params_size", _BandParams),
+                              ("mgm_wta_params_size", _WtaParams)):
         size = getattr(lib, size_name)
         size.restype = ctypes.c_int
         if size() != ctypes.sizeof(struct):
-            raise RuntimeError(f"{name}: C struct is {size()} bytes, the "
-                               f"ctypes mirror {ctypes.sizeof(struct)}")
+            raise RuntimeError(f"{size_name}: the C struct is {size()} "
+                               f"bytes, the ctypes mirror "
+                               f"{ctypes.sizeof(struct)}")
     return lib
 
 
@@ -429,7 +452,7 @@ def _wave_params(name, left, right, out, hist, mins, *, out_rows,
     ns = N // npair if npair >= 1 else 0
     if (Mp > MAX_PLANES or Ml > MAX_RECS or nco > MAX_COMBOS
             or not 1 <= mgm <= MAX_RANKS or not 1 <= L <= MAX_LABELS
-            or mode not in MODES or slope < 0 or fstep < 1
+            or mode not in MODES or slope < 0 or fstep not in (1, 2)
             or not 1 <= npair <= 65535 or ns < 1 or N != npair * ns
             or Mp % ns or any(p[0] != i % ns for i, p in enumerate(planes))
             or (lo_px is None) != (hi_px is None)):
@@ -486,14 +509,48 @@ def _wave_params(name, left, right, out, hist, mins, *, out_rows,
     return p
 
 
+def k1_plan(R: int, L: int, Mp: int, npair: int, sms: int = H100_SMS):
+    """K1's launch plan for R rows, L labels, Mp planes and npair pairs
+    on a card of `sms` SMs: K1Plan(cluster, rows, warps, lanes, smem), a
+    pure function of its arguments.
+
+    Each (pair, plane) unit is one cluster of `cluster` CTAs, as many
+    as keep every unit's clusters on the card at once (sms // units, at
+    most MAX_CLUSTER and R), and enough for each CTA's counters: CTA x
+    holds rows x*rows .. x*rows + rows - 1 (the last one fewer), its
+    `warps` warps taking rows w, w + warps, ... of them, as few rows a
+    warp as the instance's CTA size allows.  `lanes` is the instance's
+    labels a lane (K1_LANES); `smem` the CTA's shared memory, one int
+    counter a row."""
+    most_rows = SMEM_PER_CTA // 4
+    if not (1 <= L <= MAX_LABELS and 1 <= R <= MAX_CLUSTER * most_rows
+            and 1 <= Mp <= MAX_PLANES and 1 <= npair <= 65535 and sms >= 1):
+        raise ValueError(f"k1_plan: {R} rows, L {L}, {Mp} planes, {npair} "
+                         f"pairs, {sms} SMs")
+    lanes, most = next((k, w) for top, k, w in K1_LANES if L <= top)
+    cluster = max(1, min(MAX_CLUSTER, sms // (Mp * npair), R),
+                  -(-R // most_rows))
+    rows = -(-R // cluster)
+    cluster = -(-R // rows)
+    per_warp = -(-rows // most)
+    return K1Plan(cluster=cluster, rows=rows, warps=-(-rows // per_warp),
+                  lanes=lanes, smem=4 * rows)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
                     L, slope, fstep, mgm, mode, tmax, p1, p2, kappa, reverse,
                     use_fh=False, w8=None, lo_px=None, hi_px=None,
                     fh_restrict=False, npair=1):
     """K1: one scan direction of the fused recursion (arguments as in
     fused_wavefront_plain).  CPU tensors take the plain version; CUDA
-    tensors launch csrc/fused_wavefront.cu, T front kernels on the
-    current stream."""
+    tensors launch csrc/fused_wavefront.cu once, on the current stream,
+    with k1_plan's sizes for the shape and the card; a launch the card
+    refuses raises."""
     kw = dict(accumulate=accumulate, planes=planes, mspecs=mspecs,
               combos=combos, L=L, slope=slope, fstep=fstep, mgm=mgm,
               mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
@@ -512,9 +569,17 @@ def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
                        device=dev)
     p = _wave_params("fused_wavefront", left, right, out, hist, mins,
                      out_rows=R, **kw)
-    err = _lib().mgm_fused_wavefront(ctypes.byref(p), _stream(dev))
+    plan = k1_plan(R, L, len(planes), npair, _sms(dev.index))
+    with torch.cuda.device(dev):
+        err = _lib().mgm_fused_wavefront(ctypes.byref(p),
+                                         ctypes.byref(_K1Plan(*plan)),
+                                         _stream(dev))
     if err:
-        raise RuntimeError(f"fused_wavefront: CUDA error {err}")
+        why = ("no cluster of this size fits the card" if err == -1
+               else f"CUDA error {err}")
+        raise RuntimeError(f"fused_wavefront: {why}: {plan} for {npair} "
+                           f"pair(s) of {N // npair} sides, {R}x"
+                           f"{left.shape[2]}, L={L}, {len(planes)} planes")
     fused_wavefront.launches += 1
     return out
 

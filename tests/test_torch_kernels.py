@@ -297,6 +297,47 @@ def test_per_pixel_windows_match_plain(cuda, ndir, mgm, mode, use_fh, weights,
     assert np.isinf(got.cpu().numpy()).any()
 
 
+# K1's one cluster launch against its plain version in each space (A/B
+# at slopes 1 and 2, V, PA/PB) for SGM, FH, FH with edge weights, FH
+# under per-pixel windows with fh_restrict, and three pairs, at three
+# labels-a-lane instances (L 6, 151, 200), on 40 rows: with k1_plan's
+# sizes for the card (bands of 3-4 rows, a band edge every few rows)
+# three times (equal bits each time: a missing wait shows as a race),
+# then planned for a card of one SM (one CTA a unit, two rows a warp)
+K1_SPACES = {"A/B slope 1": (4, 2, 0), "A/B slope 2": (8, 3, 0),
+             "V": (8, 3, 1), "PA/PB": (8, 4, 1)}
+K1_KINDS = ("sgm", "fh", "fh weights", "fh per-pixel restrict", "3 pairs")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [6, 151, 200])
+@pytest.mark.parametrize("kind", K1_KINDS)
+@pytest.mark.parametrize("space", K1_SPACES)
+def test_k1_cluster_launch_matches_plain(cuda, space, kind, L, monkeypatch):
+    ndir, mgm, group = K1_SPACES[space]
+    R, W, K = 40, 23, 3 if kind == "3 pairs" else 1
+    rng = np.random.default_rng(L + ndir + mgm)
+    pairs = [_pair(rng, R, W, 3) for _ in range(K)]
+    us, vs = (np.stack([p[i] for p in pairs]) for i in (0, 1))
+    L, sides = _sides(-L + 5, 4, True)
+    kw = dict(ndir=ndir, mgm=mgm, sides=sides, L=L, device=cuda,
+              group=group, use_fh=kind != "sgm", tmax=40.0)
+    if "weights" in kind:
+        kw["w8"] = torch.from_numpy(np.where(
+            rng.random((2 * K, R, W, 8)) < 0.5, 0.25, 1.0).astype(np.float32))
+    if "per-pixel" in kind:
+        kw["lo_px"], kw["hi_px"] = _pp_windows(rng, 2 * K, R, W, L)
+        kw.update(fh_restrict=True,
+                  sides=tuple((g, 0, L - 1) for g, _, _ in sides))
+    want, _ = _solve_planes(cuda_fused.fused_wavefront_plain, us, vs, **kw)
+    for sms in (None, None, None, 1):
+        if sms:
+            monkeypatch.setattr(cuda_fused, "_sms", lambda index: sms)
+        got, _ = _solve_planes(cuda_fused.fused_wavefront, us, vs, **kw)
+        torch.cuda.synchronize()
+        assert_bitwise(got.cpu().numpy(), want.cpu().numpy())
+
+
 # batched pairs: cfg1's A/B group, the V group with FH and weights, and
 # the parity spaces, with and without the LR check
 @pytest.mark.cuda
