@@ -60,13 +60,16 @@ struct WaveParams {
   signed char combo_lag[MGM_MAX_COMBOS], combo_roll[MGM_MAX_COMBOS];
 };
 
-// K1's launch plan (ops/cuda_fused.k1_plan): one cluster of `cluster`
-// CTAs a (pair, plane) unit, CTA x holding rows x*rows .. x*rows +
-// rows - 1 (fewer in the last), `warps` warps each; `lanes` labels a
-// lane (the instance: 2, 5, 6 or 32) and `smem` bytes of dynamic
-// shared memory a CTA (at least its rows' int counters).
+// K1's launch plan (ops/cuda_fused.k1_plan): a (pair, plane) unit is
+// `ncl` clusters of `cluster` CTAs, its rows in bands of `band` rows
+// dealt to the unit's CTAs in turn, `rows` local rows a CTA
+// (ceil(ceil(R / band) / (cluster * ncl)) * band, some past the image in
+// the last bands), and `smem` bytes of dynamic shared memory a CTA (at
+// least two ints a local row: its count of finished fronts and its
+// entry in the row table).  The labels a lane and the warps a CTA follow
+// from L and `rows` (csrc/fused_wavefront.cuh k1_lanes, k1_warps).
 struct K1Plan {
-  int cluster, rows, warps, lanes, smem;
+  int cluster, ncl, rows, band, smem;
 };
 
 // K4's band of rows under row sharding (parallel/fused_shard.py).

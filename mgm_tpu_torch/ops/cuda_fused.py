@@ -9,10 +9,10 @@ plain PyTorch version and a launch counter:
      pointwise cost family, the SGM or truncated-linear (FH) potential,
      optional edge weights, constant or per-pixel label windows (with
      the FH window restriction) and a batch of image pairs, in one
-     cluster launch: a thread-block cluster a (pair, plane), its CTAs
-     splitting the rows into bands (`k1_plan`), a warp a row, the
-     fronts stepped inside the kernel, each row waiting only for its
-     neighbour rows' counts of finished fronts.
+     launch: one or more thread-block clusters a (pair, plane), the
+     rows in bands dealt to the CTAs in turn (`k1_plan`), a warp a row
+     (two for L <= 48), the fronts stepped inside the kernel, each row
+     waiting only for its neighbour rows' counts of finished fronts.
   K2 `wta` (csrc/wta.cu) replaces pallas_fused._wta_kernel: the sum of
      the spaces, the windowed winner-take-all and optionally the four
      S taps of the subpixel fits, for a batch of pairs.
@@ -73,13 +73,12 @@ from .wavefront import _fh_msg, _sgm_msg
 # the limits of csrc/mgm_kernels.h
 MAX_PLANES, MAX_RECS, MAX_COMBOS, MAX_RANKS = 8, 32, 16, 4
 MAX_SIDES, MAX_LABELS = 16, 1024
-# K1's instances (csrc/fused_wavefront.cuh k1_max_threads): (most labels,
-# labels a lane, most warps a CTA: 64 registers a thread up to 6 labels
-# a lane, 255 at 32)
-K1_LANES = ((64, 2, 32), (160, 5, 32), (192, 6, 32), (MAX_LABELS, 32, 8))
 MAX_CLUSTER = 16           # CTAs a cluster (the non-portable size)
 SMEM_PER_CTA = 232_448     # bytes of shared memory a CTA may use
-H100_SMS = 132             # an H100 SXM's streaming multiprocessors
+BANDS_PER_CTA = 2          # K1's bands a CTA (k1_plan) ...
+LONG_SHARE = 80            # ... twice that from this many rows a CTA
+SHARE_CAP = 96             # a one-cluster unit's CTAs: one a 96 rows
+SPREAD_SMEM = 120_000      # shared memory that leaves a CTA its own SM
 
 
 class _WaveParams(ctypes.Structure):
@@ -105,7 +104,7 @@ class _WaveParams(ctypes.Structure):
            ("combo_roll", ctypes.c_int8 * MAX_COMBOS)])
 
 
-K1Plan = collections.namedtuple("K1Plan", "cluster rows warps lanes smem")
+K1Plan = collections.namedtuple("K1Plan", "cluster ncl rows band smem")
 
 
 class _K1Plan(ctypes.Structure):
@@ -138,9 +137,14 @@ def _lib() -> ctypes.CDLL:
                           ("mgm_fused_block", (_BandParams,)),
                           ("mgm_wta", (_WtaParams,))):
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.POINTER(st) for st in structs]
-                       + [ctypes.c_void_p])
+        fn.argtypes = [ctypes.POINTER(st) for st in structs]
+        if name == "mgm_fused_wavefront":  # K1's cross-cluster counts
+            fn.argtypes += [ctypes.c_void_p, ctypes.c_ulonglong]
+        fn.argtypes += [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.mgm_k1_fit.argtypes = [ctypes.POINTER(_WaveParams),
+                               ctypes.POINTER(_K1Plan)]
+    lib.mgm_k1_fit.restype = ctypes.c_int
     for size_name, struct in (("mgm_wave_params_size", _WaveParams),
                               ("mgm_k1_plan_size", _K1Plan),
                               ("mgm_band_params_size", _BandParams),
@@ -509,37 +513,85 @@ def _wave_params(name, left, right, out, hist, mins, *, out_rows,
     return p
 
 
-def k1_plan(R: int, L: int, Mp: int, npair: int, sms: int = H100_SMS):
+def k1_plan(R: int, L: int, Mp: int, npair: int, sms: int,
+            fits=None) -> K1Plan:
     """K1's launch plan for R rows, L labels, Mp planes and npair pairs
-    on a card of `sms` SMs: K1Plan(cluster, rows, warps, lanes, smem), a
+    on a card of `sms` SMs: K1Plan(cluster, ncl, rows, band, smem), a
     pure function of its arguments.
 
-    Each (pair, plane) unit is one cluster of `cluster` CTAs, as many
-    as keep every unit's clusters on the card at once (sms // units, at
-    most MAX_CLUSTER and R), and enough for each CTA's counters: CTA x
-    holds rows x*rows .. x*rows + rows - 1 (the last one fewer), its
-    `warps` warps taking rows w, w + warps, ... of them, as few rows a
-    warp as the instance's CTA size allows.  `lanes` is the instance's
-    labels a lane (K1_LANES); `smem` the CTA's shared memory, one int
-    counter a row."""
-    most_rows = SMEM_PER_CTA // 4
+    A (pair, plane) unit is ncl clusters of `cluster` CTAs.  Where a
+    unit has room for two clusters or more (sms // units CTAs), it takes
+    as many as the card holds together with every other unit's, since a
+    unit's clusters wait on one another: clusters of MAX_CLUSTER, or,
+    for one or two units, of MAX_CLUSTER / 2 with SPREAD_SMEM bytes of
+    shared memory so that each CTA has an SM to itself.  `fits(plan)`
+    says how many clusters of the plan's shape the card holds at once
+    (the kernel's occupancy; None: sms // cluster, one CTA an SM).
+    Otherwise a unit is one cluster of up to MAX_CLUSTER CTAs (a launch
+    with more clusters than the card holds runs in waves), at least one
+    for each SHARE_CAP rows.  The rows come in bands of `band` rows,
+    BANDS_PER_CTA of them a CTA, twice that where a CTA's share of the
+    rows is LONG_SHARE or more, band b going to the unit's CTA b mod
+    (cluster * ncl), so the rows live on a front spread over every CTA;
+    a CTA holds `rows` local rows (the last bands may run past the
+    image) and `smem` bytes of shared memory, at least two ints a local
+    row.  The labels a lane and the warps a CTA follow from L and `rows`
+    in the kernel."""
+    most_rows = SMEM_PER_CTA // 8
     if not (1 <= L <= MAX_LABELS and 1 <= R <= MAX_CLUSTER * most_rows
-            and 1 <= Mp <= MAX_PLANES and 1 <= npair <= 65535 and sms >= 1):
+            and 1 <= Mp <= MAX_PLANES and 1 <= npair <= 65535
+            and sms >= 1):
         raise ValueError(f"k1_plan: {R} rows, L {L}, {Mp} planes, {npair} "
                          f"pairs, {sms} SMs")
-    lanes, most = next((k, w) for top, k, w in K1_LANES if L <= top)
-    cluster = max(1, min(MAX_CLUSTER, sms // (Mp * npair), R),
+
+    def shape(cluster, ncl, spread):
+        nc = cluster * ncl
+        m = BANDS_PER_CTA * (2 if R >= LONG_SHARE * nc else 1)
+        band = -(-R // (nc * m))
+        while band > 1 and -(-R // band) < nc:
+            band -= 1
+        rows = -(-(-(-R // band)) // nc) * band
+        return K1Plan(cluster=cluster, ncl=ncl, rows=rows, band=band,
+                      smem=max(8 * rows, SPREAD_SMEM if spread else 0))
+
+    units = Mp * npair
+    budget = max(1, sms // units)
+    if min(budget, R) >= 2 * MAX_CLUSTER:
+        spread = units <= 2
+        cluster = MAX_CLUSTER // 2 if spread else MAX_CLUSTER
+        for ncl in range(min(budget, R) // cluster, 1, -1):
+            plan = shape(cluster, ncl, spread)
+            held = fits(plan) if fits is not None else sms // cluster
+            if units * ncl <= held:
+                return plan
+    cluster = max(min(MAX_CLUSTER, R, max(budget, -(-R // SHARE_CAP))),
                   -(-R // most_rows))
-    rows = -(-R // cluster)
-    cluster = -(-R // rows)
-    per_warp = -(-rows // most)
-    return K1Plan(cluster=cluster, rows=rows, warps=-(-rows // per_warp),
-                  lanes=lanes, smem=4 * rows)
+    return shape(cluster, 1, False)
 
 
 @functools.cache
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# K1's occupancy queries (fused_wavefront), by instance and CTA shape
+_FITS: dict = {}
+
+# K1's cross-cluster counts, a buffer and the last launch's epoch for each
+# (card, stream): a launch tags its counts with a new epoch, so the
+# buffer is zeroed only when it is made
+_GDONE: dict = {}
+
+
+def _gdone(dev, n: int):
+    """(buffer of at least n int64 counts, a new epoch) for a launch on
+    the current stream of `dev`."""
+    key = (dev.index, _stream(dev))
+    buf, epoch = _GDONE.get(key, (None, 0))
+    if buf is None or buf.numel() < n or epoch + 1 >= 1 << 32:
+        buf, epoch = torch.zeros(n, dtype=torch.int64, device=dev), 0
+    _GDONE[key] = (buf, epoch + 1)
+    return buf, epoch + 1
 
 
 def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
@@ -569,11 +621,24 @@ def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,
                        device=dev)
     p = _wave_params("fused_wavefront", left, right, out, hist, mins,
                      out_rows=R, **kw)
-    plan = k1_plan(R, L, len(planes), npair, _sms(dev.index))
+    inst = (dev.index, mode, bool(use_fh), w8 is not None,
+            lo_px is not None or npair > 1, L)
+
+    def fits(pl):  # the card's occupancy for this instance and shape
+        key = inst + (pl.cluster, pl.rows, pl.smem)
+        if key not in _FITS:
+            _FITS[key] = _lib().mgm_k1_fit(ctypes.byref(p),
+                                           ctypes.byref(_K1Plan(*pl)))
+        return _FITS[key]
+
     with torch.cuda.device(dev):
-        err = _lib().mgm_fused_wavefront(ctypes.byref(p),
-                                         ctypes.byref(_K1Plan(*plan)),
-                                         _stream(dev))
+        plan = k1_plan(R, L, len(planes), npair, _sms(dev.index), fits)
+        gdone, epoch = (_gdone(dev, npair * len(planes) * R)
+                        if plan.ncl > 1 else (None, 0))
+        err = _lib().mgm_fused_wavefront(
+            ctypes.byref(p), ctypes.byref(_K1Plan(*plan)),
+            None if gdone is None else gdone.data_ptr(), epoch,
+            _stream(dev))
     if err:
         why = ("no cluster of this size fits the card" if err == -1
                else f"CUDA error {err}")

@@ -299,18 +299,20 @@ def test_per_pixel_windows_match_plain(cuda, ndir, mgm, mode, use_fh, weights,
 
 # K1's one cluster launch against its plain version in each space (A/B
 # at slopes 1 and 2, V, PA/PB) for SGM, FH, FH with edge weights, FH
-# under per-pixel windows with fh_restrict, and three pairs, at three
-# labels-a-lane instances (L 6, 151, 200), on 40 rows: with k1_plan's
-# sizes for the card (bands of 3-4 rows, a band edge every few rows)
-# three times (equal bits each time: a missing wait shows as a race),
-# then planned for a card of one SM (one CTA a unit, two rows a warp)
+# under per-pixel windows with fh_restrict, and three pairs, at each
+# instance (L 6 and 48: two rows a warp; 60, 151, 200), on 40 rows: with
+# k1_plan's sizes for the card (a unit over several clusters, bands of
+# one or two rows, so counts pass between CTAs and clusters on every
+# row) three times (equal bits each time: a missing wait shows as a
+# race), then planned for a card of one SM (one CTA a unit, several rows
+# a warp)
 K1_SPACES = {"A/B slope 1": (4, 2, 0), "A/B slope 2": (8, 3, 0),
              "V": (8, 3, 1), "PA/PB": (8, 4, 1)}
 K1_KINDS = ("sgm", "fh", "fh weights", "fh per-pixel restrict", "3 pairs")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [6, 151, 200])
+@pytest.mark.parametrize("L", [6, 48, 60, 151, 200])
 @pytest.mark.parametrize("kind", K1_KINDS)
 @pytest.mark.parametrize("space", K1_SPACES)
 def test_k1_cluster_launch_matches_plain(cuda, space, kind, L, monkeypatch):
