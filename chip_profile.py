@@ -65,6 +65,8 @@ from chip_smoke import (DMAX, DMIN, H, L, SAT_DMAX, SAT_DMIN,  # noqa: E402
 # K1's device kernels: the cluster launch, or, in a checkout from before
 # K1's cluster redesign (--repo), the per-front kernels
 K1_KERNELS = ("fused_wavefront_cluster", "sgm_front_kernel", "fh_front_kernel")
+# K5's: the launch a pass group, or, before its redesign, the front kernel
+K5_KERNELS = ("wavefront_rows", "scan_front")
 
 
 class _Stages:
@@ -315,16 +317,22 @@ def main(argv=None) -> int:
                 print(f"   {k:<28} {st.ms[k]:9.3f} ms")
         print(f"   {'rest (host, post, fetch)':<28} "
               f"{staged - top_level:9.3f} ms")
-        k1 = [(ms, n) for k, (ms, n) in by_name.items()
-              if any(c in k for c in K1_KERNELS)]
-        k1_ms, k1_n = (sum(x[i] for x in k1) / args.reps for i in (0, 1))
-        k4 = sum(ms for k, (ms, _) in by_name.items() if "band_front" in k)
+        def device(names):   # (device ms, launches) a run
+            got = [(ms, n) for k, (ms, n) in by_name.items()
+                   if any(c in k for c in names)]
+            return tuple(sum(x[i] for x in got) / args.reps for i in (0, 1))
+
+        k1_ms, k1_n = device(K1_KERNELS)
+        k5_ms, k5_n = device(K5_KERNELS)
+        k4 = device(("band_front",))[0]
         report["runs"][name]["k1_kernels_ms"] = k1_ms
         report["runs"][name]["k1_launches"] = k1_n
-        report["runs"][name]["k4_front_kernels_ms"] = k4 / args.reps
+        report["runs"][name]["k5_kernels_ms"] = k5_ms
+        report["runs"][name]["k5_launches"] = k5_n
+        report["runs"][name]["k4_front_kernels_ms"] = k4
         print(f"   K1's kernels: {k1_ms:.3f} ms of device time a run in "
-              f"{k1_n:.0f} launches; K4's front kernels: "
-              f"{k4 / args.reps:.3f} ms")
+              f"{k1_n:.0f} launches; K5's: {k5_ms:.3f} ms in {k5_n:.0f} "
+              f"launches; K4's front kernels: {k4:.3f} ms")
         print(f"   profiler: device busy {busy:.4f} of the host wall "
               f"({pwall / args.reps:.3f} ms a run profiled), device window "
               f"{window / args.reps:.3f} ms a run")

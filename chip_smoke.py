@@ -39,11 +39,17 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
  8. the `ncc` preset at cfg1 geometry on the synthetic pair, LR both
     ways, through K5/K6/K7: >= 70 % of pixels survive the LR check and
     >= 95 % of those lie within 0.5 px of the true disparity; a crop
-    equal to its CPU run; the median wall time in MP*disp/s;
+    equal to its CPU run; the median wall time in MP*disp/s; then K5's
+    device kernel launches in one run, counted by torch.profiler: one
+    a pass group (4);
  9. K6, K5 and K7 against their plain versions at the NCC run's
     largest pass group (the shapes the main path gives them): bitwise
-    equal; then each one's time beside its plain version's and one
-    PyTorch library call's;
+    equal, K5 in each of RACE_RUNS runs; then each one's time beside
+    its plain version's and one PyTorch library call's, K5's also a
+    front; then K5 against its plain version once at full_16dir's
+    column knight group (8 planes, 700x500, random costs) and at
+    mgm_o's weighted FH group (VTYPE 1: the diagonal column group of
+    the planted problem, 2 planes at slope 2), with its time a front;
 10. K1 and K2 against their plain versions on a 64-row strip, 700
     wide, L = 151, both LR sides, for the V group (ndir 8, TSGM 2,
     slope 0) and the packed-parity group (ndir 8, TSGM 4, PA + PB):
@@ -149,8 +155,8 @@ cfg1_mM_truth8 (phase 20) for K1, the two mgm_o runs, the NCC run
 `launches` is their sum.  K4's times and bound are the sharded cfg1
 recursion's over 2 ranks (phase 24).  One K1 call is one cluster launch
 that steps every front of its scan direction inside the kernel; one K5
-call launches one small kernel per wavefront.  K1's and K2's times and
-bounds are cfg2's
+call is one launch that steps every front of its pass group inside the
+kernel.  K1's and K2's times and bounds are cfg2's
 (phase 15).  `bound_ms` is the larger of the bytes the call must move
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100
 SXM's published peaks).
@@ -193,7 +199,8 @@ DENSE_KERNELS = ("wavefront_scan", "skew", "unskew")
 FUSED_KERNELS = ("fused_wavefront", "wta")
 CENSUS_WORDS = 2                 # phase 11's packed census words a pixel
 NEW_REPS = 3                     # timed runs of phases 20-26
-RACE_RUNS = 5                    # K1 runs held against one plain run
+RACE_RUNS = 5                    # K1 / K5 runs held against one plain run
+K5_KERNEL = "wavefront_rows"     # K5's device kernel (csrc/wavefront.cu)
 SHARD_KERNELS = ("fused_block", "wta")
 # cfg3 (the satellite preset): 279x271x1 pairs, disparities -22..19
 SAT_H, SAT_W, SAT_DMIN, SAT_DMAX = 271, 279, -22, 19
@@ -1130,6 +1137,15 @@ def main(argv=None) -> int:
                  torch.from_numpy(small_cpu[k]))
     print(f"[8] ncc on a {small_cpu['disp'].shape} crop: CUDA == CPU plain "
           f"for every output ({TOL})", flush=True)
+    k5_dev = _device_launches(lambda: compute_disparity(u, v, ncc,
+                                                        device="cuda"),
+                              K5_KERNEL)
+    print(f"[8] K5's device kernel launches in one ncc run (torch.profiler):"
+          f" {k5_dev} (one a pass group: {got['wavefront_scan']} wrapper "
+          f"calls)", flush=True)
+    if k5_dev != got["wavefront_scan"]:
+        raise AssertionError(f"K5 launched {k5_dev} device kernels in "
+                             f"{got['wavefront_scan']} calls")
 
     # ---- 9. dense kernel timing at the largest NCC pass group ---------
     dev = torch.device("cuda")
@@ -1171,14 +1187,19 @@ def main(argv=None) -> int:
         raise AssertionError("K6's library yardstick computes another "
                              "function")
     del lib_out, view
-    ms["wavefront_scan"], agg_sk = _event_ms_fresh(
-        sk.clone, lambda y: wf.wavefront_scan(y, **kw), 3)
     plain_ms["wavefront_scan"], ref = _event_ms_fresh(
         sk.clone, lambda y: wf.wavefront_scan_plain(y, **kw), 1, warm=False)
+    e9["wavefront_scan"] = 0.0
+    for run in range(RACE_RUNS):   # a missing wait shows as a race
+        got = wf.wavefront_scan(sk.clone(), **kw)
+        e9["wavefront_scan"] = max(e9["wavefront_scan"], _compare(
+            f"K5 {where}, run {run}", got, ref))
+        del got
+    del ref
+    ms["wavefront_scan"], agg_sk = _event_ms_fresh(
+        sk.clone, lambda y: wf.wavefront_scan(y, **kw), 3)
     library_ms["wavefront_scan"] = None
     del sk
-    e9["wavefront_scan"] = _compare(f"K5 {where}", agg_sk, ref)
-    del ref
     e9["unskew"] = _same_bits(f"K7 {where}", wf.unskew(agg_sk, C, s),
                               wf.unskew_plain(agg_sk, C, s))
     ms["unskew"] = _event_ms(lambda: wf.unskew(agg_sk, C, s), 5)
@@ -1190,8 +1211,8 @@ def main(argv=None) -> int:
         raise AssertionError("K7's library yardstick computes another "
                              "function")
     del lib_out, view, agg_sk
-    print(f"[9] K6, K5, K7 == plain {where}: {TOL}, max abs err {e9}",
-          flush=True)
+    print(f"[9] K6, K5, K7 == plain {where}: {TOL}, K5 in each of "
+          f"{RACE_RUNS} runs, max abs err {e9}", flush=True)
     for n in DENSE_KERNELS:
         errs[n] = max(errs[n], e9[n])
     xb, skb = x.numel() * 4, A * R * T * Lx * 4
@@ -1209,7 +1230,42 @@ def main(argv=None) -> int:
               f"({bounds[n][1]}) at the NCC run's largest group: {A} planes,"
               f" {R}x{C} canonical, slope {s}, {T} fronts, L={Lx} on {card}",
               flush=True)
+    print(f"[9] K5: {ms['wavefront_scan'] / T * 1e3:.3f} us a front at the "
+          f"NCC run's largest group ({T} fronts) on {card}", flush=True)
     del x
+    # K5 at full_16dir's column knight group (random costs, both sides)
+    # and at mgm_o's weighted FH group (VTYPE 1, the planted problem)
+    unary, w8, _ = synthetic_mrf(H, W, L, seed=0)
+    for what, ndir, fh, N, ccv, w8v in (
+            ("full_16dir's column knight group", 16, False, 2,
+             torch.from_numpy(np.random.default_rng(9).uniform(
+                 0, 50, (2, H, W, L)).astype(np.float32)).to(dev), None),
+            ("mgm_o's weighted FH group (VTYPE 1)", 8, True, 1,
+             torch.from_numpy(unary).to(dev)[None],
+             torch.from_numpy(w8).to(dev)[None])):
+        pids = [g for g in agg._pass_groups(ndir, 2)
+                if agg.group_plan(g, H, W, 2).R == W][-1]
+        plan = agg.group_plan(pids, H, W, 2)
+        sk_in = agg.skewed_inputs(agg.canonical_inputs(
+            plan, ccv, w8v, None, None, use_weights=fh, fh_restrict=False),
+            plan.slope)
+        del ccv
+        kw = agg.scan_kwargs(plan, p1=8.0 if fh else 24.0,
+                             p2=32.0 if fh else 96.0, mgm=2, use_fh=fh,
+                             use_weights=fh, fh_restrict=False)
+        ref = wf.wavefront_scan_plain(sk_in[0].clone(), *sk_in[1:], **kw)
+        kms, got = _event_ms_fresh(sk_in[0].clone, lambda y: wf.wavefront_scan(
+            y, *sk_in[1:], **kw), 1)
+        e = _compare(f"K5 at {what}", got, ref)
+        errs["wavefront_scan"] = max(errs["wavefront_scan"], e)
+        Tk = sk_in[0].shape[2]
+        print(f"[9] K5 == plain at {what}: {tuple(sk_in[0].shape)} skewed "
+              f"(knight {plan.knight}, slope {plan.slope}): {TOL}, max abs "
+              f"err {e}; {kms:.3f} ms = {kms / Tk * 1e3:.3f} us a front on "
+              f"{card}", flush=True)
+        del sk_in, ref, got
+        torch.cuda.empty_cache()
+    del unary, w8
 
     # ---- 10. K1 and K2 in the V and packed-parity spaces -------------
     _fused_check("10", (("fast_ad V group", _fast_ad(ndir=8), 1),

@@ -86,7 +86,7 @@
 // design (a run-time G branch once cost 11 % a front), and so are K,
 // the labels a lane, and NL, the lanes a row: (16, 3) for L <= 48,
 // (32, 2) to 64, (32, 5) to 160, (32, 6) to 192, (32, 32) to 1024
-// (k1_lanes), each with its CTA size limit (1024 threads and 64
+// (labels_a_lane), each with its CTA size limit (1024 threads and 64
 // registers up to 6 labels a lane; 256 threads, 255 registers, at 32);
 // 200 instances in all, each family's in a file of its own
 // (fused_wavefront_<family>.cu) so that they compile in parallel.

@@ -98,7 +98,7 @@ struct BandParams {
 // Dense MGM recursion over one skewed canonical pass group (K5).
 struct ScanParams {
   float* vol;          // (M, R, T, L) skewed costs in, aggregated out
-  float* mins;         // (M, R, T) minimum over labels of each cell
+  float* mins;         // (M, R, C) minimum over labels of each real cell
   const float* w;      // (noffs * M, R, T) weights per offset rank, or 0
   const int* lo;       // (M, R, T) FH label windows, or 0
   const int* hi;
@@ -110,6 +110,17 @@ struct ScanParams {
   int noffs;
   int off_lag[MGM_MAX_OFFS], off_shift[MGM_MAX_OFFS];
   int dir_rank[MGM_MAX_RANKS];
+};
+
+// K5's launch plan (ops/wavefront.k5_plan): `ctas` CTAs of `warps` warps,
+// all resident at once.  The rows come in bands of `warps` rows of one
+// plane group (a warp a row of 32 / NL planes); band beta is rows
+// (beta / MP) * warps ... of plane group beta % MP (MP plane groups) and
+// goes to CTA beta mod ctas, its row j to warp j; `smem` bytes of
+// dynamic shared memory a CTA (each warp's ring of its row's last
+// columns and its count: ops/wavefront._k5_warp_smem).
+struct K5Plan {
+  int ctas, warps, smem;
 };
 
 // Cross-space sum + windowed winner-take-all (K2).

@@ -68,13 +68,12 @@ import torch
 from . import _build
 from .common import INF, shift_fill
 from .cuda_cost import MODES, pointwise_cost
-from .wavefront import _fh_msg, _sgm_msg
+from .wavefront import SMEM_PER_CTA, _fh_msg, _gdone, _sgm_msg, _sms
 
 # the limits of csrc/mgm_kernels.h
 MAX_PLANES, MAX_RECS, MAX_COMBOS, MAX_RANKS = 8, 32, 16, 4
 MAX_SIDES, MAX_LABELS = 16, 1024
 MAX_CLUSTER = 16           # CTAs a cluster (the non-portable size)
-SMEM_PER_CTA = 232_448     # bytes of shared memory a CTA may use
 BANDS_PER_CTA = 2          # K1's bands a CTA (k1_plan) ...
 LONG_SHARE = 80            # ... twice that from this many rows a CTA
 SHARE_CAP = 96             # a one-cluster unit's CTAs: one a 96 rows
@@ -569,29 +568,8 @@ def k1_plan(R: int, L: int, Mp: int, npair: int, sms: int,
     return shape(cluster, 1, False)
 
 
-@functools.cache
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 # K1's occupancy queries (fused_wavefront), by instance and CTA shape
 _FITS: dict = {}
-
-# K1's cross-cluster counts, a buffer and the last launch's epoch for each
-# (card, stream): a launch tags its counts with a new epoch, so the
-# buffer is zeroed only when it is made
-_GDONE: dict = {}
-
-
-def _gdone(dev, n: int):
-    """(buffer of at least n int64 counts, a new epoch) for a launch on
-    the current stream of `dev`."""
-    key = (dev.index, _stream(dev))
-    buf, epoch = _GDONE.get(key, (None, 0))
-    if buf is None or buf.numel() < n or epoch + 1 >= 1 << 32:
-        buf, epoch = torch.zeros(n, dtype=torch.int64, device=dev), 0
-    _GDONE[key] = (buf, epoch + 1)
-    return buf, epoch + 1
 
 
 def fused_wavefront(left, right, out, *, accumulate, planes, mspecs, combos,

@@ -15,7 +15,8 @@ plain PyTorch version and a launch counter:
 A wrapper runs the plain version only because its tensors lie on the
 CPU; on CUDA tensors it launches the kernel or raises.  `launches`
 counts the calls that launched the kernel (never plain runs); one K5
-call launches one small kernel per wavefront.
+call is one device launch that steps every front of the group inside
+the kernel, its size from `k5_plan`.
 
 The skewed volumes have T = C + slope*(R-1) fronts: the TPU's row
 rounding (Rp), store margin and front blocking (t_round, G) are gone.
@@ -25,6 +26,7 @@ update saves a second copy of it, up to 3.2 GB at cfg1 geometry.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import struct
@@ -61,18 +63,37 @@ class _ScanParams(ctypes.Structure):
            ("dir_rank", ctypes.c_int * MAX_RANKS)])
 
 
+class _K5Plan(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in ("ctas", "warps", "smem")]
+
+
+# K5's launch plan (csrc/mgm_kernels.h K5Plan)
+K5Plan = collections.namedtuple("K5Plan", "ctas warps smem")
+
+K5_WARPS = 8   # rows a band: the warps of a CTA
+SMEM_PER_CTA = 232_448   # bytes of shared memory a CTA may use
+K5_SLACK = 2   # bands a plane group beyond those a front keeps busy
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel library with this module's entry points typed."""
     lib = _build.load()
-    lib.mgm_wavefront_scan.argtypes = [ctypes.POINTER(_ScanParams),
-                                       ctypes.c_void_p]
+    lib.mgm_wavefront_scan.argtypes = [
+        ctypes.POINTER(_ScanParams), ctypes.POINTER(_K5Plan),
+        ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p]
     lib.mgm_wavefront_scan.restype = ctypes.c_int
-    lib.mgm_scan_params_size.restype = ctypes.c_int
-    if lib.mgm_scan_params_size() != ctypes.sizeof(_ScanParams):
-        raise RuntimeError(f"mgm_wavefront_scan: C struct is "
-                           f"{lib.mgm_scan_params_size()} bytes, the ctypes "
-                           f"mirror {ctypes.sizeof(_ScanParams)}")
+    lib.mgm_k5_fit.argtypes = [ctypes.POINTER(_ScanParams),
+                               ctypes.POINTER(_K5Plan)]
+    lib.mgm_k5_fit.restype = ctypes.c_int
+    for size_name, st in (("mgm_scan_params_size", _ScanParams),
+                          ("mgm_k5_plan_size", _K5Plan)):
+        size = getattr(lib, size_name)
+        size.restype = ctypes.c_int
+        if size() != ctypes.sizeof(st):
+            raise RuntimeError(f"{size_name}: the C struct is {size()} "
+                               f"bytes, the ctypes mirror "
+                               f"{ctypes.sizeof(st)}")
     lib.mgm_skew.argtypes = ([ctypes.c_void_p, ctypes.c_void_p,
                               ctypes.c_longlong] + [ctypes.c_int] * 5
                              + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
@@ -82,6 +103,30 @@ def _lib() -> ctypes.CDLL:
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# K1's and K5's counts between CTAs that wait on each other: a buffer
+# and the last launch's epoch for each (card, stream).  A launch tags
+# its counts with a new epoch, so the buffer is zeroed only when it is
+# made, and the two kernels may share it (their launches on a stream
+# run one after the other)
+_GDONE: dict = {}
+
+
+def _gdone(dev, n: int):
+    """(buffer of at least n int64 counts, a new epoch) for a launch on
+    the current stream of `dev`."""
+    key = (dev.index, _stream(dev))
+    buf, epoch = _GDONE.get(key, (None, 0))
+    if buf is None or buf.numel() < n or epoch + 1 >= 1 << 32:
+        buf, epoch = torch.zeros(n, dtype=torch.int64, device=dev), 0
+    _GDONE[key] = (buf, epoch + 1)
+    return buf, epoch + 1
 
 
 def _check(name, t, shape, dtypes, device) -> None:
@@ -269,6 +314,58 @@ def wavefront_scan_plain(vol, w_sk=None, lo_sk=None, hi_sk=None, *, C, p1,
     return vol
 
 
+def _k5_warp_smem(L: int) -> int:
+    """Shared memory a warp of K5 takes for L labels: its ring of its
+    row's last 8 columns (4 beyond 192 labels: csrc/wavefront.cu
+    k5_ring), a value and its column's count in 8 bytes for each label
+    and the minimum of each of its planes (two up to 48 labels), and its
+    count."""
+    return ((8 if L <= 192 else 4) * (2 if L <= 48 else 1) * (L + 1) * 8
+            + 4)
+
+
+def k5_plan(M: int, R: int, C: int, slope: int, L: int, sms: int,
+            fits=None) -> K5Plan:
+    """K5's launch plan for M planes of R rows and C columns at `slope`
+    with L labels on a card of `sms` SMs: K5Plan(ctas, warps, smem), a
+    pure function of its arguments.
+
+    A warp holds a row, or for L <= 48 the same row of two planes (a
+    plane group); the rows come in bands of `warps` rows of one plane
+    group, band beta to CTA beta mod ctas (csrc/wavefront.cu).  A row
+    starts about `slope` columns behind the row above, so about C /
+    slope rows of a plane are busy at once: a plane group gets that many
+    CTAs' worth of bands at most, plus K5_SLACK, and a CTA whose band is
+    done takes its next one.  Every CTA must be resident at once (rows
+    wait on rows of other CTAs): `fits(warps)` says how many CTAs of
+    `warps` warps the card holds at once (the kernel's occupancy; None:
+    `sms`, one CTA an SM), and a shape for which it holds none is
+    refused.  `smem`: each warp's ring and count (_k5_warp_smem), as
+    many warps as the CTA's shared memory holds."""
+    if not (M >= 1 and R >= 1 and C >= 1 and slope >= 1
+            and 1 <= L <= MAX_LABELS and sms >= 1):
+        raise ValueError(f"k5_plan: {M} planes of {R}x{C}, slope {slope}, "
+                         f"L {L}, {sms} SMs")
+    per_warp = _k5_warp_smem(L)
+    groups = -(-M // (2 if L <= 48 else 1))
+    warps = min(K5_WARPS, R, SMEM_PER_CTA // per_warp)
+    bands = groups * -(-R // warps)
+    busy = groups * (-(-C // (slope * warps)) + K5_SLACK)
+    held = sms if fits is None else fits(warps)
+    if held < 1:
+        raise ValueError(f"k5_plan: the card holds no CTA of {warps} warps "
+                         f"for {M} planes of {R}x{C}, slope {slope}, L {L}")
+    ctas = min(bands, busy, held)
+    if -(-bands // ctas) * C >= 1 << 31:   # a CTA's counts: int32
+        raise ValueError(f"k5_plan: {M} planes of {R}x{C} in {ctas} CTAs "
+                         f"overflow the counts")
+    return K5Plan(ctas=ctas, warps=warps, smem=warps * per_warp)
+
+
+# K5's occupancy queries (mgm_k5_fit), by card, instance and CTA size
+_FITS: dict = {}
+
+
 def wavefront_scan(vol, w_sk=None, lo_sk=None, hi_sk=None, *, C, p1, p2,
                    mgm, dir2off, slope, knight=False, use_fh=False,
                    use_weights=False, fh_restrict=False):
@@ -281,7 +378,8 @@ def wavefront_scan(vol, w_sk=None, lo_sk=None, hi_sk=None, *, C, p1, p2,
     lo_sk/hi_sk: (M, R, T, 1) int32 label windows when fh_restrict.
     dir2off: canonical offset id per coupled dir (length mgm).
     CPU tensors take the plain version; CUDA tensors launch
-    csrc/wavefront.cu, T front kernels on the current stream."""
+    csrc/wavefront.cu once on the current stream, with k5_plan's sizes
+    for the shape and the card; a launch the card refuses raises."""
     kw = dict(C=C, p1=p1, p2=p2, mgm=mgm, dir2off=dir2off, slope=slope,
               knight=knight, use_fh=use_fh, use_weights=use_weights,
               fh_restrict=fh_restrict)
@@ -308,7 +406,7 @@ def wavefront_scan(vol, w_sk=None, lo_sk=None, hi_sk=None, *, C, p1, p2,
                     use_fh=int(use_fh), use_weights=int(use_weights),
                     fh_restrict=int(fh_restrict), p1=p1, p2=p2,
                     noffs=len(offs))
-    mins = torch.empty((M, R, T), dtype=torch.float32, device=dev)
+    mins = torch.empty((M, R, C), dtype=torch.float32, device=dev)
     p.mins = mins.data_ptr()
     if use_weights:
         _check("w_sk", w_sk, (len(offs) * M, R, T, 1), (torch.float32,), dev)
@@ -322,7 +420,25 @@ def wavefront_scan(vol, w_sk=None, lo_sk=None, hi_sk=None, *, C, p1, p2,
         p.off_shift[k] = int(shift)
     for j, off in enumerate(dir2off):
         p.dir_rank[j] = offs.index(off)
-    err = _lib().mgm_wavefront_scan(ctypes.byref(p), _stream(dev))
+    inst = (dev.index, bool(use_fh), bool(use_weights), L)
+
+    def fits(warps):  # the card's occupancy for this instance and size
+        key = inst + (warps,)
+        if key not in _FITS:
+            _FITS[key] = _lib().mgm_k5_fit(ctypes.byref(p), ctypes.byref(
+                _K5Plan(1, warps, warps * _k5_warp_smem(L))))
+        return _FITS[key]
+
+    with torch.cuda.device(dev):
+        plan = k5_plan(M, R, C, slope, L, _sms(dev.index), fits)
+        gdone, epoch = _gdone(dev, plan.ctas)
+        err = _lib().mgm_wavefront_scan(
+            ctypes.byref(p), ctypes.byref(_K5Plan(*plan)), gdone.data_ptr(),
+            epoch, _stream(dev))
+    if err == -1:
+        raise RuntimeError(f"wavefront_scan: the card cannot hold the "
+                           f"{plan.ctas} CTAs of {plan.warps} warps at once "
+                           f"for {M} planes of {R}x{C} (T {T}), L {L}")
     if err:
         raise RuntimeError(f"wavefront_scan: CUDA error {err}")
     wavefront_scan.launches += 1

@@ -581,13 +581,20 @@ DENSE_CASES = [
     (16, 4, False, False, False, 4), (16, 2, True, False, False, 5)]
 
 
+# K5's one launch a pass group at each instance's edges of L (two planes
+# a warp up to 48 labels; 2, 5, 6 and 32 labels a lane beyond), on 21 x
+# 26 pixels: with k5_plan's sizes for the card (rows in bands of 8 over
+# several CTAs, counts passing between warps and between CTAs) three
+# times (equal bits each time: a missing wait shows as a race), then
+# planned for cards of 1 and 3 SMs (one or three CTAs, each warp taking
+# several rows one after the other)
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [6, 151])
+@pytest.mark.parametrize("L", [6, 48, 49, 64, 151, 160, 161, 200, 1024])
 @pytest.mark.parametrize("case", DENSE_CASES)
-def test_dense_kernels_match_plain(cuda, case, L):
+def test_dense_kernels_match_plain(cuda, case, L, monkeypatch):
     ndir, mgm, fh, weights, restrict, pick = case
     rng = np.random.default_rng(L + pick)
-    canon, plan, kw = _group_case(rng, N=2, H=13, W=17, L=L, ndir=ndir,
+    canon, plan, kw = _group_case(rng, N=2, H=21, W=26, L=L, ndir=ndir,
                                   mgm=mgm, use_fh=fh, use_weights=weights,
                                   fh_restrict=restrict, pick=pick)
     canon = tuple(None if x is None else x.to(cuda) for x in canon)
@@ -597,12 +604,39 @@ def test_dense_kernels_match_plain(cuda, case, L):
         if w is not None:
             assert np.array_equal(g.cpu().numpy().view(np.uint32),
                                   w.cpu().numpy().view(np.uint32))
-    vol = wf.wavefront_scan(got[0].clone(), *got[1:], **kw)
     ref = wf.wavefront_scan_plain(want[0].clone(), *want[1:], **kw)
-    torch.cuda.synchronize()
-    assert_bitwise(vol.cpu().numpy(), ref.cpu().numpy())
+    k5_plan = wf.k5_plan
+    for sms in (None, None, None, 1, 3):
+        if sms:
+            monkeypatch.setattr(wf, "k5_plan", lambda *a, s=sms: k5_plan(
+                *a[:5], s))
+        vol = wf.wavefront_scan(got[0].clone(), *got[1:], **kw)
+        torch.cuda.synchronize()
+        assert_bitwise(vol.cpu().numpy(), ref.cpu().numpy())
     assert_bitwise(wf.unskew(vol, plan.C, plan.slope).cpu().numpy(),
                    wf.unskew_plain(ref, plan.C, plan.slope).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_k5_call_is_one_device_launch(cuda):
+    """One wavefront_scan call launches one device kernel (no kernel a
+    front), by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(3)
+    canon, plan, kw = _group_case(rng, N=2, H=30, W=40, L=151, ndir=8,
+                                  mgm=2, pick=2)
+    sk = wf.skew(canon[0].to(cuda), float("inf"), plan.slope)
+    wf.wavefront_scan(sk.clone(), **kw)   # loaded, counts buffer made
+    x = sk.clone()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wf.wavefront_scan(x, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "wavefront_rows" in names[0], names
 
 
 @pytest.mark.cuda
