@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time goes on one GPU: the port's ten full-width runs.
+"""Where the time goes on one GPU: the port's full-width runs.
 
     python3 chip_profile.py [--reps N] [--out DIR] [--rows NAME ...]
-                            [--repo DIR]
+                            [--repo DIR] [--block G]
 
 Run from a checkout on a machine with one CUDA card (it builds the
 kernels like chip_smoke.py and imports no JAX).  The runs, on seeded
@@ -28,8 +28,9 @@ synthetic data at 700x500, L = 151:
               8x8 mosaic of one satellite pair (2232x2168);
   cfg1_mesh2  cfg1 row-sharded over 2 ranks on the one card
               (compute_disparity(mesh=...): K4 on each band, K2 a
-              band; an emulation of 2 cards, the ranks one after
-              another).
+              band; 2 ranks on one card, each on its own stream);
+  cfg2_mesh2  cfg2 row-sharded the same way (K4 in the A/B stagger and
+              the V group's lockstep blocks).
 For each run it prints
   - the host wall time, median of N plain runs;
   - host stage times: the run's stage functions are wrapped with a
@@ -41,7 +42,10 @@ For each run it prints
 With --out DIR the full tables also go to DIR/profile.json; --rows
 names the runs to make (default: all); --repo DIR profiles the
 mgm_tpu_torch package of another checkout (e.g. the parent commit, to
-compare two versions with one script; its kernels build there).
+compare two versions with one script; its kernels build there);
+--block G sets the sharded rows' block of scan steps
+(parallel/fused_shard.BLOCK; a checkout from before K4's redesign
+keeps its own).
 """
 from __future__ import annotations
 
@@ -67,6 +71,8 @@ from chip_smoke import (DMAX, DMIN, H, L, SAT_DMAX, SAT_DMIN,  # noqa: E402
 K1_KERNELS = ("fused_wavefront_cluster", "sgm_front_kernel", "fh_front_kernel")
 # K5's: the launch a pass group, or, before its redesign, the front kernel
 K5_KERNELS = ("wavefront_rows", "scan_front")
+# K4's: the launch a block, or, before its redesign, the front kernel
+K4_KERNELS = ("fused_block_cluster", "band_front")
 
 
 class _Stages:
@@ -148,6 +154,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="directory for profile.json")
     ap.add_argument("--rows", nargs="+", help="run only these rows")
     ap.add_argument("--repo", help="checkout whose mgm_tpu_torch to profile")
+    ap.add_argument("--block", type=int,
+                    help="scan steps a block of the sharded rows")
     args = ap.parse_args(argv)
     if args.repo:
         sys.path.insert(0, os.path.abspath(args.repo))
@@ -162,12 +170,16 @@ def main(argv=None) -> int:
     from mgm_tpu_torch.models import get_preset
     from mgm_tpu_torch.ops import _build, cuda_fused, fused
     from mgm_tpu_torch.ops import aggregate as agg
+    from mgm_tpu_torch.parallel import fused_shard
     from mgm_tpu_torch.ops import wavefront as wf
     from mgm_tpu_torch.synthetic import synthetic_mrf, synthetic_pair
 
     _build.build()
     card = _device_line()     # the card's name and power limit
-    print(f"profiling {_build.PKG} on {card}")
+    if args.block:
+        fused_shard.BLOCK = args.block
+    print(f"profiling {_build.PKG} on {card}; sharded blocks of "
+          f"{fused_shard.BLOCK} steps")
     u, v, _ = synthetic_pair(H, W, DMIN, DMAX, seed=0)
     cfg1 = MGMConfig(dmin=DMIN, dmax=DMAX, ndir=4, mgm=2, distance="ad",
                      p1=8, p2=32, test_lr=True)
@@ -272,8 +284,17 @@ def main(argv=None) -> int:
             u, v, cfg1, mesh=_mesh2()), 2 * H * W * L,
          [(stereo, "_scrub", "upload + scrub"),
           (stereo, "mgm_solve_fused", "fused solve"),
-          (cuda_fused, "fused_block", "  K4 fused block"),
+          (fused_shard, "sharded_fused_planes", "  K4 sharded recursion"),
           (cuda_fused, "wta", "  K2 wta")]),
+        ("cfg2_mesh2", lambda: stereo.compute_disparity(
+            u, v, cfg2, mesh=_mesh2()), 2 * H * W * L,
+         [(stereo, "_scrub", "upload + scrub"),
+          (stereo, "_preprocess", "census / prefilter"),
+          (stereo, "mgm_solve_fused", "fused solve"),
+          (fused_shard, "sharded_fused_planes", "  K4 sharded recursion"),
+          (cuda_fused, "wta", "  K2 wta + taps"),
+          (stereo, "subpixel_refine_taps", "refine"),
+          (post, "median_filter", "median")]),
         ("mgm_o", lambda: mrf_cli.main([f_in, f_out, "8", "32", "2", "0"]),
          H * W * L,
          [(mrf_cli, "read_problem", "read protocol file"),
@@ -324,15 +345,17 @@ def main(argv=None) -> int:
 
         k1_ms, k1_n = device(K1_KERNELS)
         k5_ms, k5_n = device(K5_KERNELS)
-        k4 = device(("band_front",))[0]
+        k4_ms, k4_n = device(K4_KERNELS)
         report["runs"][name]["k1_kernels_ms"] = k1_ms
         report["runs"][name]["k1_launches"] = k1_n
         report["runs"][name]["k5_kernels_ms"] = k5_ms
         report["runs"][name]["k5_launches"] = k5_n
-        report["runs"][name]["k4_front_kernels_ms"] = k4
+        report["runs"][name]["k4_kernels_ms"] = k4_ms
+        report["runs"][name]["k4_launches"] = k4_n
+        report["runs"][name]["block"] = fused_shard.BLOCK
         print(f"   K1's kernels: {k1_ms:.3f} ms of device time a run in "
               f"{k1_n:.0f} launches; K5's: {k5_ms:.3f} ms in {k5_n:.0f} "
-              f"launches; K4's front kernels: {k4:.3f} ms")
+              f"launches; K4's: {k4_ms:.3f} ms in {k4_n:.0f} launches")
         print(f"   profiler: device busy {busy:.4f} of the host wall "
               f"({pwall / args.reps:.3f} ms a run profiled), device window "
               f"{window / args.reps:.3f} ms a run")

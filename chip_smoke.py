@@ -116,21 +116,25 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     MP*disp/s of scene work (2*H*W*L).
 
 24. K4 (the fused recursion on one rank's band of rows, row sharding)
-    against its plain version over in-process ranks on the one card,
-    the whole sharded recursion held bitwise: the A/B stagger at cfg1's
-    full 700x500, L = 151 over 2 ranks; cfg2's V group and
-    cfg1_tsgm4's PB group (lockstep aprons) on 64-row strips over 2
-    ranks; cfg1 on a 61-row strip over 3 ranks (21 + 21 + 19 rows);
-    each also bitwise equal to K1's unsharded volume; then K4's time
-    for a sharded cfg1 recursion beside its plain version's and its
-    bound;
+    against its plain version over in-process ranks on the one card
+    (each rank on its own stream), the whole sharded recursion held
+    bitwise, K4's run in each of RACE_RUNS runs against one plain run:
+    the A/B stagger at cfg1's full 700x500, L = 151 over 2 ranks;
+    cfg2's V group (census, FH) and cfg1_tsgm4's PB group (lockstep
+    aprons) at full shape over 2 ranks; cfg1 on a 61-row strip over 3
+    ranks (21 + 21 + 19 rows) in blocks of 4 steps (the halo ring wraps
+    many times); each also bitwise equal to K1's unsharded volume; then
+    K4's device launches in one sharded cfg1 recursion, counted by
+    torch.profiler in a process of its own: one a call; then its time
+    for that recursion beside its plain version's and its bound;
 25. the sharded path end to end: compute_disparity(mesh=make_mesh(
     devices=["cuda:0"] * n)) for cfg1 at n = 2 and 4, and cfg2,
     cfg1_tsgm4 and cfg1_mM at n = 2, every output bitwise equal to the
     unsharded run's, through K4 and K2 (K1 not launched), the median
     wall of NEW_REPS runs beside the unsharded one's, in MP*disp/s,
-    and peak memory (n ranks on one card run one after another: an
-    emulation of n cards, not a multi-card measurement);
+    and peak memory (n ranks on one card, each on its own stream and
+    K4's plan on 1/n of the card: an emulation of n cards, not a
+    multi-card measurement);
 26. two processes on the one card (gloo; NCCL refuses two ranks on one
     GPU, and gloo takes CPU tensors, so the tracks go through host
     memory): cfg1 through parallel.distributed's
@@ -154,12 +158,13 @@ cfg1_mM_truth8 (phase 20) for K1, the two mgm_o runs, the NCC run
 12) for K1, K5-K8, and the sharded rows (phase 25) for K4 and K2;
 `launches` is their sum.  K4's times and bound are the sharded cfg1
 recursion's over 2 ranks (phase 24).  One K1 call is one cluster launch
-that steps every front of its scan direction inside the kernel; one K5
-call is one launch that steps every front of its pass group inside the
-kernel.  K1's and K2's times and bounds are cfg2's
-(phase 15).  `bound_ms` is the larger of the bytes the call must move
-over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100
-SXM's published peaks).
+that steps every front of its scan direction inside the kernel; one K4
+call is one launch of the same kernel body on a band that steps a
+block's fronts inside the kernel; one K5 call is one launch that steps
+every front of its pass group inside the kernel.  K1's and K2's times
+and bounds are cfg2's (phase 15).  `bound_ms` is the larger of the
+bytes the call must move over 3.35 TB/s and its float32 operations over
+67 TFLOP/s (the H100 SXM's published peaks).
 """
 from __future__ import annotations
 
@@ -201,6 +206,7 @@ CENSUS_WORDS = 2                 # phase 11's packed census words a pixel
 NEW_REPS = 3                     # timed runs of phases 20-26
 RACE_RUNS = 5                    # K1 / K5 runs held against one plain run
 K5_KERNEL = "wavefront_rows"     # K5's device kernel (csrc/wavefront.cu)
+K4_KERNEL = "fused_block_cluster"  # K4's (csrc/fused_wavefront.cuh)
 SHARD_KERNELS = ("fused_block", "wta")
 # cfg3 (the satellite preset): 279x271x1 pairs, disparities -22..19
 SAT_H, SAT_W, SAT_DMIN, SAT_DMAX = 271, 279, -22, 19
@@ -752,11 +758,12 @@ def _fronts(groups, R, C):
     return n
 
 
-def _k4_planes(fn, cfg, inp, n, group=None):
+def _k4_planes(fn, cfg, inp, n, group=None, block=None):
     """The sharded recursion of cfg's fused groups (or group number
     `group` alone) over n in-process ranks on the card through `fn`
-    (K4 or its plain version), with _k1_inputs' `inp`: ({rank: (r0,
-    volume)}, nspaces)."""
+    (K4 or its plain version) in blocks of `block` steps (the default
+    when None), with _k1_inputs' `inp`: ({rank: (r0, volume)},
+    nspaces)."""
     from mgm_tpu_torch.ops import fused
     from mgm_tpu_torch.parallel import make_mesh, sharded_fused_planes
 
@@ -766,40 +773,83 @@ def _k4_planes(fn, cfg, inp, n, group=None):
     kw = dict(inp)
     return sharded_fused_planes(kw.pop("lefts"), kw.pop("rights"),
                                 mesh=make_mesh(devices=["cuda:0"] * n),
-                                groups=groups, kernel=fn,
+                                groups=groups, kernel=fn, block=block,
                                 kappa=-float(cfg.ndir - 1), **kw)
 
 
-def _k4_check(phase, cases, errs):
-    """K4 against its plain version, the whole sharded recursion, and
-    against K1's unsharded volume, bitwise, for each (label, cfg, pair,
-    ranks, group) case; returns each case's plain time (ms, one run)."""
+def _k4_launch_worker() -> int:
+    """Phase 24's count of K4's device kernels, in a process of its own:
+    one sharded cfg1 recursion over 2 ranks (after a warm one) under
+    torch.profiler; prints its kernels and its wrapper calls as JSON."""
+    sys.path.insert(0, REPO)
+    import torch
+    from mgm_tpu_torch.ops import cuda_fused
+    from mgm_tpu_torch.synthetic import synthetic_pair
+
+    u, v, _ = synthetic_pair(H, W, DMIN, DMAX, seed=0)
+    cfg = _fast_ad()
+    inp = _k1_inputs(cfg, u, v)
+    _k4_planes(cuda_fused.fused_block, cfg, inp, 2)
+    torch.cuda.synchronize()
+    cuda_fused.fused_block.launches = 0
+    device = _device_launches(lambda: _k4_planes(
+        cuda_fused.fused_block, cfg, inp, 2), K4_KERNEL)
+    print(json.dumps({"calls": cuda_fused.fused_block.launches,
+                      "device": device}), flush=True)
+    return 0
+
+
+def _k4_launches_process() -> dict:
+    """Runs _k4_launch_worker in a process of its own; its record."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--k4-launches"], capture_output=True, text=True,
+                         timeout=600)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith('{"calls"')]
+    if res.returncode != 0 or not lines:
+        raise AssertionError(f"the K4 launch count failed "
+                             f"({res.returncode}):\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def _k4_check(phase, cases, errs, runs):
+    """K4 against its plain version, the whole sharded recursion, K4's
+    in each of `runs` runs against one plain run, and against K1's
+    unsharded volume, bitwise, for each (label, cfg, pair, ranks, group,
+    block) case; returns each case's plain time (ms, one run)."""
     import torch
     from mgm_tpu_torch.ops import cuda_fused
 
     plain_ms = []
-    for label, cfg, (u, v), n, group in cases:
+    for label, cfg, (u, v), n, group, block in cases:
         inp = _k1_inputs(cfg, u, v)
-        got, ns = _k4_planes(cuda_fused.fused_block, cfg, inp, n, group)
         t, (want, _) = _event_once(lambda: _k4_planes(
-            cuda_fused.fused_block_plain, cfg, inp, n, group))
+            cuda_fused.fused_block_plain, cfg, inp, n, group, block))
         plain_ms.append(t)
         ref, _ = _planes(cuda_fused.fused_wavefront, cfg, inp, group)
         err, rows = 0.0, []
-        for k in sorted(got):
-            r0, vol = got[k]
-            err = max(err, _compare(f"K4 {label} rank {k}", vol, want[k][1]))
-            _compare(f"K4 {label} rank {k} against K1",
-                     vol, ref[:, r0:r0 + vol.shape[1]])
-            rows.append(vol.shape[1])
+        for run in range(runs):
+            got, ns = _k4_planes(cuda_fused.fused_block, cfg, inp, n, group,
+                                 block)
+            rows = []
+            for k in sorted(got):
+                r0, vol = got[k]
+                err = max(err, _compare(f"K4 {label} run {run} rank {k}",
+                                        vol, want[k][1]))
+                _compare(f"K4 {label} rank {k} against K1",
+                         vol, ref[:, r0:r0 + vol.shape[1]])
+                rows.append(vol.shape[1])
+            del got
         errs["fused_block"] = max(errs["fused_block"], err)
-        print(f"[{phase}] K4 == plain, sharded over {n} ranks of the card "
-              f"(rows {rows}), {label}: {u.shape[0]}x{u.shape[1]}x3, "
-              f"L={inp['L']}, ndir {cfg.ndir} TSGM {cfg.mgm}, "
-              f"{cfg.distance}, {'FH' if cfg.use_trunc_linear else 'SGM'}, "
-              f"{ns} spaces: {TOL}, max abs err {err}; every band == K1's "
-              f"unsharded volume; plain {t:.1f} ms", flush=True)
-        del got, want, ref, inp
+        print(f"[{phase}] K4 == plain in each of {runs} runs, sharded over "
+              f"{n} ranks of the card (rows {rows}, blocks of "
+              f"{block or 'the default'} steps), {label}: "
+              f"{u.shape[0]}x{u.shape[1]}x3, L={inp['L']}, ndir {cfg.ndir} "
+              f"TSGM {cfg.mgm}, {cfg.distance}, "
+              f"{'FH' if cfg.use_trunc_linear else 'SGM'}, {ns} spaces: "
+              f"{TOL}, max abs err {err}; every band == K1's unsharded "
+              f"volume; plain {t:.1f} ms", flush=True)
+        del want, ref, inp
         torch.cuda.empty_cache()
     return plain_ms
 
@@ -963,6 +1013,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--dist-worker"]:
         return _dist_worker(int(argv[1]), 2, argv[2], argv[3])
+    if argv[:1] == ["--k4-launches"]:
+        return _k4_launch_worker()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--data", default=os.path.join(REPO, "data"),
                     help="directory with fountain23-im{L,R}.png (optional)")
@@ -1622,18 +1674,29 @@ def main(argv=None) -> int:
     del su, sv, sd, scene, single
 
     # ---- 24. K4 against its plain version: the sharded recursion ----
-    strip_rows = synthetic_pair(STRIP, W, DMIN, DMAX, seed=1)[:2]
     ragged = synthetic_pair(61, W, DMIN, DMAX, seed=5)[:2]
     plain_k4 = _k4_check("24", (
-        ("cfg1 A/B stagger, full shape", cfg, (u, v), 2, None),
-        ("cfg2 V group (lockstep aprons)", cfg2, strip_rows, 2, 1),
-        ("cfg1_tsgm4 PB group (lockstep aprons)", _fast_ad(mgm=4),
-         strip_rows, 2, 1),
-        ("cfg1, ragged rows", cfg, ragged, 3, None)), errs)
+        ("cfg1 A/B stagger, full shape", cfg, (u, v), 2, None, None),
+        ("cfg2 V group (census, FH, lockstep aprons), full shape", cfg2,
+         (u, v), 2, 1, None),
+        ("cfg1_tsgm4 PB group (lockstep aprons), full shape",
+         _fast_ad(mgm=4), (u, v), 2, 1, None),
+        ("cfg1, ragged rows", cfg, ragged, 3, None, 4)), errs, RACE_RUNS)
     inp = _k1_inputs(cfg, u, v)
     _zero(("fused_block",))
     _k4_planes(cuda_fused.fused_block, cfg, inp, 2)
     blocks = _counts(("fused_block",))["fused_block"]
+    # counted in a process of its own: late in this one torch.profiler
+    # reported 101-103 of the 124 kernels on the H100, in fresh processes
+    # every one
+    rec = _k4_launches_process()
+    print(f"[24] K4's device kernel launches in cfg1's sharded recursion "
+          f"over 2 ranks, in a process of its own (torch.profiler): "
+          f"{rec['device']} (one a block: {rec['calls']} wrapper calls; "
+          f"{blocks} here)", flush=True)
+    if not rec["device"] == rec["calls"] == blocks:
+        raise AssertionError(f"K4 launched {rec['device']} device kernels "
+                             f"in {rec['calls']} calls ({blocks} here)")
     ms["fused_block"] = _event_ms(lambda: _k4_planes(
         cuda_fused.fused_block, cfg, inp, 2), 3)
     plain_ms["fused_block"] = plain_k4[0]
@@ -1641,8 +1704,8 @@ def main(argv=None) -> int:
     bounds["fused_block"] = _k4_bound(cfg, inp, 2)
     print(f"[24] fused_block: {ms['fused_block']:.3f} ms for cfg1's sharded "
           f"recursion over 2 ranks of one card ({blocks} blocks of "
-          f"{BLOCK} steps = {ms['fused_block'] / blocks:.4f} ms a block), plain "
-          f"{plain_ms['fused_block']:.3f} ms, bound "
+          f"{BLOCK} steps = {ms['fused_block'] / blocks:.4f} ms a block), "
+          f"plain {plain_ms['fused_block']:.3f} ms, bound "
           f"{bounds['fused_block'][0]:.3f} ms ({bounds['fused_block'][1]}: "
           f"K1's volume, images and tracks) on {card}", flush=True)
     del inp

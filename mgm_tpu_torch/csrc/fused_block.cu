@@ -3,91 +3,97 @@
 // Replaces the TPU kernel mgm_tpu/ops/pallas_fused.py:_block_kernel
 // (launched by fused_block, pallas_fused.py:626), which the row-sharded
 // pipeline (mgm_tpu/parallel/fused_shard.py) steps over G-front blocks.
-// Here it is the per-front design K1 had before its cluster redesign
-// (csrc/fused_front.cuh): K1's arithmetic in the same order at every
+// It is K1's kernel (csrc/fused_wavefront.cuh, whose design notes are in
+// csrc/fused_wavefront.cu) with the template flag BAND: one launch a
+// block, the fronts step0 .. step0 + nsteps - 1 stepped inside the
+// kernel, one or more thread-block clusters a plane, rows in bands dealt
+// to the CTAs in turn, a warp a row (two at L <= 48), labels across the
+// lanes, the ring in global memory and rows synchronised by per-row
+// counts of finished fronts; K1's arithmetic in the same order at every
 // pixel, so a sharded run's volume is bitwise the single-device one's.
-// What the band adds:
-//   - the grid's rows are the band's local rows (plus aprons); the
-//     front map, the border rule and the images use image rows r0 + r
-//     against the image's R, and rows outside [0, R) leave at once;
+// What the band adds (BandTail, csrc/mgm_kernels.h):
+//   - the launch's rows are the band's local rows (aprons included) that
+//     lie in the image: local row x is image row r0 + x, and the front
+//     map, the border rule and the images use image rows against the
+//     image's R; rows above row 0 or past R are never run;
 //   - the carried state is K1's own ring, (D + 1, Ml, Rl, L) and its
 //     minima, kept by the caller from block to block (the TPU kernel
-//     takes and returns hist/mins explicitly);
-//   - a dep row outside the band reads the neighbour's halo track, the
-//     row it shipped at step u - lag of this block (index u - lag + G),
-//     its minimum recomputed by a block reduction, as _block_kernel's
-//     `hidx = u -+ lag + 8` track (pallas_fused.py:492-503);
-//   - row ship_row writes each step's new front into the ship track
-//     (G, Ml, L) the downstream band takes;
+//     takes and returns hist/mins explicitly); the row counts start at
+//     0 on front step0, since the stream orders the blocks;
+//   - a dep row outside the band reads the neighbour's halo track, a
+//     ring of two G-step tracks holding step s at entry s mod 2G,
+//     complete before the launch (no wait), its minimum recomputed over
+//     the row's lanes (a minimum is exact in any order), as
+//     _block_kernel's `hidx = u -+ lag + 8` track (pallas_fused.py:
+//     492-503); without a halo it reads +inf;
+//   - row ship_row writes each front into the ship track (G, Ml, L) the
+//     downstream band takes;
 //   - the output holds local rows out_off .. out_off + out_R - 1.
-// One front kernel a step, nsteps of them on the caller's stream.
-#include "fused_front.cuh"
+// Bound: as K1's, the chain of the block's fronts, each a row's cost,
+// messages and stores for one warp; the bytes are the band's share of
+// K1's volume and images, plus the tracks.
+#include "fused_wavefront.cuh"
 
-template <int MODE, bool FH, bool W, bool G>
-__global__ void band_front_kernel(const BandParams bp, int t, int slot_t,
-                                  int u) {
-  front<MODE, FH, W, G>(bp.w, bp.b, t, slot_t, u);
-}
+// each cost family's band instances (fused_block_<family>.cu)
+Launch k4_pick_ad(bool fh, bool w, bool g, int L);
+Launch k4_pick_sd(bool fh, bool w, bool g, int L);
+Launch k4_pick_census(bool fh, bool w, bool g, int L);
+Launch k4_pick_btad(bool fh, bool w, bool g, int L);
+Launch k4_pick_btsd(bool fh, bool w, bool g, int L);
 
 extern "C" int mgm_band_params_size(void) { return (int)sizeof(BandParams); }
 
-template <int MODE, bool FH, bool W, bool G>
-static int run_block(const BandParams& bp, cudaStream_t s) {
-  const WaveParams& p = bp.w;
-  const int T = p.fstep * (p.C - 1) + p.slope * (p.R - 1) + 1;
-  const dim3 grid(bp.b.Rl, p.Mp, 1);
-  const int threads = (p.L + 31) / 32 * 32;
-  for (int u = 0; u < bp.b.nsteps; ++u) {
-    const int k = bp.b.step0 + u;
-    if (k >= T) break;
-    const int t = p.reverse ? T - 1 - k : k;
-    band_front_kernel<MODE, FH, W, G><<<grid, threads, 0, s>>>(
-        bp, t, t % (p.D + 1), u);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
-typedef int (*RunBlock)(const BandParams&, cudaStream_t);
-
-template <int MODE, bool G>
-static RunBlock pick_block_g(bool fh, bool w) {
-  if (fh)
-    return w ? run_block<MODE, true, true, G> : run_block<MODE, true, false, G>;
-  return w ? run_block<MODE, false, true, G> : run_block<MODE, false, false, G>;
-}
-
-template <int MODE>
-static RunBlock pick_block(bool fh, bool w, bool g) {
-  return g ? pick_block_g<MODE, true>(fh, w) : pick_block_g<MODE, false>(fh, w);
-}
-
-// Runs the block's steps on `stream`; returns the first CUDA error (0
-// when all launches were accepted).  One image pair (npair 1).
-extern "C" int mgm_fused_block(const BandParams* params, void* stream) {
-  const BandParams bp = *params;
+// The band instance for the block's parameters, after checking them and
+// the plan (sized on the band's rows in the image) against the kernel's
+// limits (nullptr: outside them).  One image pair.
+static Launch k4_instance(const BandParams& bp, const K1Plan& plan) {
   const WaveParams& p = bp.w;
   const BandTail& b = bp.b;
-  if (p.L < 1 || p.L > MGM_MAX_LABELS || p.Mp > MGM_MAX_PLANES ||
-      p.Ml > MGM_MAX_RECS || p.mgm < 1 || p.mgm > MGM_MAX_RANKS ||
-      p.fstep < 1 || p.slope < 0 || p.nch < 1 || p.npair != 1 ||
-      p.nsides < 1 || p.Mp % p.nsides != 0 ||
-      (p.lo_px == nullptr) != (p.hi_px == nullptr) || b.Rl < 1 ||
-      b.Rl > 65535 || b.out_R < 0 || b.G < p.D || b.nsteps < 1 ||
-      b.nsteps > b.G || b.step0 < 0 || b.ship_row < -1 ||
-      b.ship_row >= b.Rl || (b.ship == nullptr) != (b.ship_row < 0))
-    return (int)cudaErrorInvalidValue;
+  const int T = p.fstep * (p.C - 1) + p.slope * (p.R - 1) + 1;
+  if (p.npair != 1 || b.Rl < 1 || b.out_R < 0 || b.G < p.D ||
+      b.nsteps < 1 || b.nsteps > b.G || b.step0 < 0 || b.step0 >= T ||
+      b.ship_row < -1 || b.ship_row >= b.Rl ||
+      (b.ship == nullptr) != (b.ship_row < 0) ||
+      !k1_params_ok(p, plan, RowMap<true>{p, b}.n()))
+    return nullptr;
   const bool fh = p.use_fh != 0, w = p.w8 != nullptr;
   const bool g = p.lo_px != nullptr;
-  RunBlock run;
   switch (p.mode) {
-    case MGM_COST_AD: run = pick_block<MGM_COST_AD>(fh, w, g); break;
-    case MGM_COST_SD: run = pick_block<MGM_COST_SD>(fh, w, g); break;
-    case MGM_COST_CENSUS: run = pick_block<MGM_COST_CENSUS>(fh, w, g); break;
-    case MGM_COST_BTAD: run = pick_block<MGM_COST_BTAD>(fh, w, g); break;
-    case MGM_COST_BTSD: run = pick_block<MGM_COST_BTSD>(fh, w, g); break;
-    default: return (int)cudaErrorInvalidValue;
+    case MGM_COST_AD: return k4_pick_ad(fh, w, g, p.L);
+    case MGM_COST_SD: return k4_pick_sd(fh, w, g, p.L);
+    case MGM_COST_CENSUS: return k4_pick_census(fh, w, g, p.L);
+    case MGM_COST_BTAD: return k4_pick_btad(fh, w, g, p.L);
+    case MGM_COST_BTSD: return k4_pick_btsd(fh, w, g, p.L);
+    default: return nullptr;
   }
-  return run(bp, (cudaStream_t)stream);
+}
+
+// Runs the block as one cluster launch on `stream` with the plan's sizes
+// (ops/cuda_fused.k4_plan); returns the CUDA error of the launch (0 when
+// it was accepted), cudaErrorInvalidValue for parameters or a plan
+// outside the kernel's limits, or MGM_ERR_NO_CLUSTER when the plan's
+// clusters do not fit the card.  gdone, epoch: as for
+// mgm_fused_wavefront, Mp * (the band's rows in the image) counts.
+extern "C" int mgm_fused_block(const BandParams* params,
+                               const K1Plan* kplan,
+                               unsigned long long* gdone,
+                               unsigned long long epoch, void* stream) {
+  const Launch run = k4_instance(*params, *kplan);
+  if (run == nullptr || (kplan->ncl > 1 && gdone == nullptr) ||
+      epoch >= (1ull << 32))
+    return (int)cudaErrorInvalidValue;
+  return run(params->w, *kplan, params->b, gdone, epoch,
+             (cudaStream_t)stream, nullptr);
+}
+
+// How many clusters of the plan's shape the card holds at once for the
+// block's instance, or -1 for parameters or a plan outside the kernel's
+// limits.
+extern "C" int mgm_k4_fit(const BandParams* params, const K1Plan* kplan) {
+  const Launch run = k4_instance(*params, *kplan);
+  int fit = -1;
+  if (run == nullptr ||
+      run(params->w, *kplan, params->b, nullptr, 0, nullptr, &fit) != 0)
+    return -1;
+  return fit;
 }

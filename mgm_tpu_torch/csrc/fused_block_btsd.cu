@@ -1,0 +1,7 @@
+// K4's instances for the btsd cost: K1's kernel on a band
+// (csrc/fused_wavefront.cuh, BAND; csrc/fused_block.cu).
+#include "fused_wavefront.cuh"
+
+Launch k4_pick_btsd(bool fh, bool w, bool g, int L) {
+  return pick<MGM_COST_BTSD, true>(fh, w, g, L);
+}

@@ -68,7 +68,7 @@
 // reduction is a shuffle within the segment: the all-invalid vote (a
 // ballot), the NaN-keeping minimum (exact in any order), the l -+ 1
 // neighbours of the SGM message, and FH's min-plus doubling
-// (mgm_device.cuh fh_msg's steps s = 1, 2, 4, ... up, then down, each
+// (ops/wavefront._fh_msg's steps s = 1, 2, 4, ... up, then down, each
 // v[l] = nmin(v[l], v_old[l -+ s] + p1w*s), now a shuffle of each slot
 // by s mod NL and a slot offset of s / NL, in the same order of steps,
 // so every label sees the same operations; a recursion's deps double
@@ -82,14 +82,16 @@
 // C, L) float volume a pair, and the images, weights and windows once.
 //
 // Instances: the cost family (MODE), FH, weights (W), and G (per-pixel
-// windows or several pairs) are template flags as in the per-front
-// design (a run-time G branch once cost 11 % a front), and so are K,
+// windows or several pairs) are template flags (in the earlier per-front
+// design a run-time G branch cost 11 % a front), and so are K,
 // the labels a lane, and NL, the lanes a row: (16, 3) for L <= 48,
 // (32, 2) to 64, (32, 5) to 160, (32, 6) to 192, (32, 32) to 1024
 // (labels_a_lane), each with its CTA size limit (1024 threads and 64
 // registers up to 6 labels a lane; 256 threads, 255 registers, at 32);
 // 200 instances in all, each family's in a file of its own
-// (fused_wavefront_<family>.cu) so that they compile in parallel.
+// (fused_wavefront_<family>.cu) so that they compile in parallel; K4's
+// 200 band instances (BAND, csrc/fused_block.cu) compile in
+// fused_block_<family>.cu.
 // ptxas (-Xptxas -v, sm_90a, in development builds on the H100 machine):
 // the (16, 3) census SGM instance with pairs 64 registers and 48 bytes of
 // stack, the (32, 5) ad SGM one 64 and 56, the (32, 5) census FH one
@@ -116,30 +118,7 @@ extern "C" int mgm_k1_plan_size(void) { return (int)sizeof(K1Plan); }
 // The instance for the launch's parameters, after checking them and the
 // plan against the kernel's limits (nullptr: outside them).
 static Launch k1_instance(const WaveParams& p, const K1Plan& plan) {
-  if (p.L < 1 || p.L > MGM_MAX_LABELS || p.Mp < 1 ||
-      p.Mp > MGM_MAX_PLANES || p.Ml > MGM_MAX_RECS || p.mgm < 1 ||
-      p.mgm > MGM_MAX_RANKS || p.fstep < 1 || p.fstep > 2 || p.slope < 0 ||
-      p.nch < 1 || p.R < 1 || p.R > (1 << 20) ||
-      p.npair < 1 || p.npair > 65535 || p.nsides < 1 ||
-      p.Mp % p.nsides != 0 || (p.lo_px == nullptr) != (p.hi_px == nullptr))
-    return nullptr;
-  // every dep reads rows r -+ 1 at most: the row counts order nothing
-  // farther
-  for (int m = 0; m < p.Ml; ++m)
-    for (int j = 0; j < p.mgm; ++j) {
-      const int ci = p.rec_ranks[m][j];
-      if (ci >= MGM_MAX_COMBOS || p.combo_roll[ci] < -1 ||
-          p.combo_roll[ci] > 1 || p.combo_lag[ci] < 1 ||
-          p.combo_lag[ci] > p.D)
-        return nullptr;
-    }
-  const long long bands = (p.R + (long long)plan.band - 1) / plan.band;
-  const long long ctas = (long long)plan.cluster * plan.ncl;
-  if (plan.cluster < 1 || plan.cluster > 16 || plan.ncl < 1 ||
-      plan.band < 1 || bands < ctas ||
-      plan.rows != (bands + ctas - 1) / ctas * plan.band ||
-      plan.smem < 8 * plan.rows || plan.smem > 232448)
-    return nullptr;
+  if (!k1_params_ok(p, plan, p.R)) return nullptr;
   const bool fh = p.use_fh != 0, w = p.w8 != nullptr;
   const bool g = p.lo_px != nullptr || p.npair > 1;
   switch (p.mode) {
@@ -169,7 +148,8 @@ extern "C" int mgm_fused_wavefront(const WaveParams* params,
   if (run == nullptr || (kplan->ncl > 1 && gdone == nullptr) ||
       epoch >= (1ull << 32))
     return (int)cudaErrorInvalidValue;
-  return run(*params, *kplan, gdone, epoch, (cudaStream_t)stream, nullptr);
+  return run(*params, *kplan, BandTail{}, gdone, epoch,
+             (cudaStream_t)stream, nullptr);
 }
 
 // How many clusters of the plan's shape the card holds at once for the
@@ -179,7 +159,7 @@ extern "C" int mgm_k1_fit(const WaveParams* params, const K1Plan* kplan) {
   const Launch run = k1_instance(*params, *kplan);
   int fit = -1;
   if (run == nullptr ||
-      run(*params, *kplan, nullptr, 0, nullptr, &fit) != 0)
+      run(*params, *kplan, BandTail{}, nullptr, 0, nullptr, &fit) != 0)
     return -1;
   return fit;
 }

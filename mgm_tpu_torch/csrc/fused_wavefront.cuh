@@ -1,6 +1,7 @@
 // K1's kernel (csrc/fused_wavefront.cu describes it) and its launch,
-// templated on the cost family, FH, weights, G, the labels a lane and
-// the lanes a row.
+// templated on the cost family, FH, weights, G, the labels a lane, the
+// lanes a row and BAND: K4 (csrc/fused_block.cu) is this kernel on one
+// rank's band of rows under row sharding, a block of fronts a launch.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -24,6 +25,44 @@ __host__ __device__ constexpr int k1_warps(int rows, int K, int NL) {
              ? (rows + 32 / NL - 1) / (32 / NL)
              : k1_max_threads(K) / 32;
 }
+
+// Where a launch's rows lie.  K1: the image's rows.  K4 (BAND): the
+// local rows of the band (BandTail: Rl ring rows, local row x image row
+// r0 + x) that lie in the image, lo .. lo + n - 1; the others (aprons
+// above row 0, the last band's padding) are never run and never read
+// (the border rule keeps every dep inside the image).  Launch row x is
+// image row img0 + x, ring row ring0 + x of a ring of `stride` rows a
+// slot, output row out0 + x of out_R.  Each accessor reads the kernel's
+// parameters where it is used, so K1's instances compile as without the
+// band (held in registers, the map took K1's 5-label ad SGM instance
+// from a 96- to a 128-byte stack and 16 % longer on the H100).
+template <bool BAND>
+struct RowMap {
+  const WaveParams& p;
+  const BandTail& b;
+  __host__ __device__ __forceinline__ int lo() const {
+    return BAND && b.r0 < 0 ? -b.r0 : 0;
+  }
+  __host__ __device__ __forceinline__ int n() const {
+    if constexpr (BAND)
+      return (b.Rl < p.R - b.r0 ? b.Rl : p.R - b.r0) - lo();
+    else
+      return p.R;
+  }
+  __host__ __device__ __forceinline__ int img0() const {
+    return BAND ? b.r0 + lo() : 0;
+  }
+  __host__ __device__ __forceinline__ int ring0() const { return lo(); }
+  __host__ __device__ __forceinline__ int stride() const {
+    return BAND ? b.Rl : p.R;
+  }
+  __host__ __device__ __forceinline__ int out0() const {
+    return BAND ? lo() - b.out_off : 0;
+  }
+  __host__ __device__ __forceinline__ int out_R() const {
+    return BAND ? b.out_R : p.R;
+  }
+};
 
 // The row's raw costs of its K label slots: pointwise_cost's terms
 // (mgm_device.cuh) summed in its order, a channel at a time over the
@@ -79,22 +118,34 @@ __device__ __forceinline__ void slot_costs(const WaveParams& p, size_t up,
   }
 }
 
-// Coupled dep j of recursion m at pixel (r, pix), ring slot slot_t, for
-// a lane whose pixel is interior (`act`; +inf otherwise): its front's
-// row (label s*NL + sl in v[s]; `win` bit s set where that label lies in
-// the pixel's window, the FH input under fh_restrict), the row's minimum
-// and the dep's P1, P2 (weighted at the pixel).
-template <bool W, int K, int NL>
+// Coupled dep j of recursion m at pixel pix of launch row r, ring slot
+// slot_t, for a lane whose pixel is interior (`act`; +inf otherwise):
+// its front's row (label s*NL + sl in v[s]; `win` bit s set where that
+// label lies in the pixel's window, the FH input under fh_restrict), the
+// row's minimum and the dep's P1, P2 (weighted at the pixel).  K4 (BAND):
+// a dep row outside the band (`oob`) is the neighbour band's shipped
+// front at step step0 + u - lag, entry (step mod 2G) of the halo ring,
+// complete before the launch (+inf without a halo); `hm` is then this
+// lane's minimum over its labels of that row, unmasked, for the row
+// minimum the caller takes over the segment (mk stays +inf).
+template <bool W, int K, int NL, bool BAND>
 __device__ __forceinline__ void load_dep(const WaveParams& p,
+                                         const BandTail& b,
+                                         const RowMap<BAND>& rm,
                                          const float* hist, const float* mins,
-                                         int m, int j, int slot_t, int r,
-                                         bool mine_up, bool mine_dn,
+                                         int m, int j, int slot_t, int u,
+                                         int r, bool mine_up, bool mine_dn,
                                          size_t pix, bool act, unsigned win,
                                          bool restrict_in, int nk, int sl,
                                          float (&v)[K], float& mk,
-                                         float& p1w, float& p2w) {
+                                         float& p1w, float& p2w, bool& oob,
+                                         float& hm) {
   p1w = p.p1;
   p2w = p.p2;
+  if constexpr (BAND) {
+    oob = false;
+    hm = INFINITY;
+  }
   if (NL < 32) {  // lockstep segments: a non-interior row loads nothing
 #pragma unroll
     for (int s = 0; s < K; ++s) v[s] = INFINITY;
@@ -108,12 +159,27 @@ __device__ __forceinline__ void load_dep(const WaveParams& p,
   if (slot < 0) slot += p.D + 1;
   if (slot > p.D) slot -= p.D + 1;
   const int roll = p.combo_roll[ci];
-  const size_t row = ((size_t)slot * p.Ml + m) * p.R + (r - roll);
-  const float* h = hist + row * p.L;
-  // a row of this CTA: written on this SM, read through L1; another
-  // CTA's: written on another SM, read from L2 (ld.global.cg)
-  const bool mine = roll == 0 || (roll > 0 ? mine_up : mine_dn);
-  mk = mine ? mins[row] : __ldcg(mins + row);
+  const int rd = r - roll;  // the dep's launch row
+  const float* h;
+  bool mine = false;
+  if (BAND && (rd < 0 || rd >= rm.n())) {
+    oob = true;
+    h = nullptr;
+    if (b.halo != nullptr) {
+      int e = (b.step0 + u - lag) % (2 * b.G);
+      if (e < 0) e += 2 * b.G;
+      h = b.halo + ((size_t)e * p.Ml + m) * p.L;
+    }
+    mk = INFINITY;
+  } else {
+    const size_t row =
+        ((size_t)slot * p.Ml + m) * rm.stride() + rm.ring0() + rd;
+    h = hist + row * p.L;
+    // a row of this CTA: written on this SM, read through L1; another
+    // CTA's: written on another SM, read from L2 (ld.global.cg)
+    mine = roll == 0 || (roll > 0 ? mine_up : mine_dn);
+    mk = mine ? mins[row] : __ldcg(mins + row);
+  }
   if constexpr (W) {  // this dep's weight at the pixel updated
     const float d = p.w8[pix * 8 + p.rec_wch[m][j]];
     p1w = d * p.p1;
@@ -124,36 +190,51 @@ __device__ __forceinline__ void load_dep(const WaveParams& p,
     const int l = s * NL + sl;
     const bool in = restrict_in ? ((win >> s) & 1u) != 0 : l < p.L;
     v[s] = INFINITY;
+    if constexpr (BAND) {
+      if (oob) {  // the halo row: written by an earlier launch or copy
+        const float x = h != nullptr && (K <= 6 || s < nk) && l < p.L
+                            ? __ldcg(h + l) : INFINITY;
+        hm = nmin(hm, x);
+        if (in) v[s] = x;
+        continue;
+      }
+    }
     if ((K <= 6 || s < nk) && in) v[s] = mine ? h[l] : __ldcg(h + l);
   }
 }
 
 
-// One front of the warp's rows: each NL-lane segment takes row r (r < 0:
-// none) of plane i, pair k on front t (ring slot slot_t).  A row with a
-// pixel on the front computes its costs, wait()s for the neighbours'
-// earlier fronts, writes each recursion's new front into the ring (and
-// its minimum), publish()es (the neighbours may go on), then writes the
-// plane's output; a row without one publishes at once (it reads and
-// writes nothing on this front, so it need not wait).  The segments run
-// in lockstep (every shuffle is the whole warp's); a segment whose row
-// has no pixel computes on a clamped one and stores nothing.
+// One front of the warp's rows: each NL-lane segment takes launch row r
+// (r < 0: none; RowMap) of plane i, pair k on front t (ring slot slot_t),
+// the u-th front of the launch.  A row with a pixel on the front
+// computes its costs, wait()s for the neighbours' earlier fronts, writes
+// each recursion's new front into the ring (and its minimum; K4: row
+// b.ship_row also into the ship track's entry u), publish()es (the
+// neighbours may go on), then writes the plane's output (K4: where the
+// output holds the row); a row without one publishes at once (it reads
+// and writes nothing on this front, so it need not wait).  The segments
+// run in lockstep (every shuffle is the whole warp's); a segment whose
+// row has no pixel computes on a clamped one and stores nothing.
 // Slots holding a label of some lane are not tested (K <= 6: the
 // instance fits L), so their loads issue together; the 32-label
 // instance skips its idle slots.
-template <int MODE, bool FH, bool W, bool G, int K, int NL, class Wait,
-          class Publish>
-__device__ __forceinline__ void row_front(const WaveParams& p, float* hist,
+template <int MODE, bool FH, bool W, bool G, int K, int NL, bool BAND,
+          class Wait, class Publish>
+__device__ __forceinline__ void row_front(const WaveParams& p,
+                                          const BandTail& b,
+                                          const RowMap<BAND>& rm,
+                                          float* hist,
                                           float* mins, int i, int k, int r,
                                           bool mine_up, bool mine_dn, int t,
-                                          int slot_t, int sl, Wait&& wait,
-                                          Publish&& publish) {
+                                          int slot_t, int u, int sl,
+                                          Wait&& wait, Publish&& publish) {
   constexpr unsigned SEG = NL == 32 ? FULL_MASK : (1u << NL) - 1u;
   const int seg0 = (threadIdx.x & 31) & ~(NL - 1);  // segment's first lane
   int col = 0;
   bool live = false;
   if (r >= 0) {
-    const int num = t - p.plane_a0[i] + p.plane_ssgn[i] * p.slope * r;
+    const int num =
+        t - p.plane_a0[i] + p.plane_ssgn[i] * p.slope * (rm.img0() + r);
     col = p.fstep == 1 ? num : num >> 1;  // fstep is 1 or 2
     live = num >= 0 && !(num & (p.fstep - 1)) && col < p.C;
   }
@@ -164,7 +245,11 @@ __device__ __forceinline__ void row_front(const WaveParams& p, float* hist,
   }
   if (NL == 32) live = true;
   if (!live) col = 0;  // a clamped pixel, nothing stored
-  const int rc = live ? r : 0;
+  const int rr = live ? r : 0;  // the launch row
+  const int rc = rm.img0() + rr;  // its image row
+  // the output row (K1: every row's; K4: the band rows the output holds)
+  const int orow = rm.out0() + rr;
+  const bool put = live && (!BAND || (orow >= 0 && orow < rm.out_R()));
   const int nk = (p.L + NL - 1) / NL;  // slots holding a label
   const int s = p.plane_side[i];
   const int n = G ? k * p.nsides + s : s;
@@ -172,11 +257,13 @@ __device__ __forceinline__ void row_front(const WaveParams& p, float* hist,
   const size_t pix = prow * p.C + col;
   const size_t oi =
       G ? (size_t)(i - s) * p.npair + (size_t)k * p.nsides + s : (size_t)i;
-  float* const out = p.out + ((oi * p.R + rc) * p.C + col) * p.L;
+  float* const out =
+      p.out + ((oi * rm.out_R() + (BAND && !put ? 0 : orow)) * p.C + col) *
+                  p.L;
   // the row's next pixel (col -+ 1) accumulates on the next front of
   // its own: fetch its forward-launch sums into L2 now
   const int ncol = p.reverse ? col - 1 : col + 1;
-  if (live && p.accumulate && ncol >= 0 && ncol < p.C) {
+  if (put && p.accumulate && ncol >= 0 && ncol < p.C) {
     const float* nxt = out + (ncol - col) * p.L;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
@@ -229,6 +316,11 @@ __device__ __forceinline__ void row_front(const WaveParams& p, float* hist,
   // FH under per-pixel windows reads each message's input inside the
   // TARGET pixel's window only (pallas_fused.py:876-879, 902)
   const bool restrict_in = FH && G && p.fh_restrict;
+  // K4: this row's new fronts go into the ship track as well
+  float* const ship = BAND && live && b.ship != nullptr &&
+                              rm.ring0() + rr == b.ship_row
+                          ? b.ship + (size_t)u * p.Ml * p.L
+                          : nullptr;
 
   wait(live);  // the costs needed none of the neighbours' fronts
   const int nrec = p.plane_nrec[i];
@@ -252,13 +344,25 @@ __device__ __forceinline__ void row_front(const WaveParams& p, float* hist,
       // every dep's loads first, so they issue together, then the
       // messages in dep order
       float v[MGM_MAX_RANKS][K], mk[MGM_MAX_RANKS], p1w[MGM_MAX_RANKS],
-          p2w[MGM_MAX_RANKS];
+          p2w[MGM_MAX_RANKS], hm[MGM_MAX_RANKS];
+      bool oob[MGM_MAX_RANKS];
 #pragma unroll
       for (int j = 0; j < MGM_MAX_RANKS; ++j)
         if (j < p.mgm)
-          load_dep<W, K, NL>(p, hist, mins, m, j, slot_t, rc, mine_up,
-                             mine_dn, pix, interior, win, restrict_in, nk,
-                             sl, v[j], mk[j], p1w[j], p2w[j]);
+          load_dep<W, K, NL, BAND>(p, b, rm, hist, mins, m, j, slot_t, u,
+                                   rr, mine_up, mine_dn, pix, interior, win,
+                                   restrict_in, nk, sl, v[j], mk[j], p1w[j],
+                                   p2w[j], oob[j], hm[j]);
+      if constexpr (BAND) {
+        // a dep on the neighbour band's row: its minimum over the labels
+        // (exact in any order, so the neighbour's own minimum bit for bit)
+#pragma unroll
+        for (int j = 0; j < MGM_MAX_RANKS; ++j)
+          if (j < p.mgm && __any_sync(FULL_MASK, oob[j])) {
+            const float x = seg_min<NL>(hm[j]);
+            if (oob[j]) mk[j] = x;
+          }
+      }
       if constexpr (FH) {
         fh_up<K, NL>(v, p1w, p.mgm, p.L, sl);
 #pragma unroll
@@ -286,7 +390,8 @@ __device__ __forceinline__ void row_front(const WaveParams& p, float* hist,
       }
     }
     // the new front into the ring, and its minimum over all labels
-    const size_t hrow = ((size_t)slot_t * p.Ml + m) * p.R + rc;
+    const size_t hrow =
+        ((size_t)slot_t * p.Ml + m) * rm.stride() + rm.ring0() + rr;
     float* const dst = hist + hrow * p.L;
     float mv = INFINITY;
 #pragma unroll
@@ -295,6 +400,7 @@ __device__ __forceinline__ void row_front(const WaveParams& p, float* hist,
       const int l = j * NL + sl;
       if (l < p.L) {
         if (live) dst[l] = nv[j];
+        if (BAND && ship != nullptr) ship[(size_t)m * p.L + l] = nv[j];
         mv = nmin(mv, nv[j]);
       }
       sum[j] = kr ? sum[j] + nv[j] : nv[j];
@@ -303,7 +409,7 @@ __device__ __forceinline__ void row_front(const WaveParams& p, float* hist,
     if (live && sl == 0) mins[hrow] = mv;
   }
   publish();  // the ring rows are written: the neighbours may go on
-  if (!live) return;
+  if (!put) return;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
     if (K > 6 && j >= nk) break;
@@ -317,9 +423,10 @@ __device__ __forceinline__ void row_front(const WaveParams& p, float* hist,
 }
 
 // A local row's entry in the CTA's row table (dynamic shared memory):
-// its image row (bits 0-19, R <= 16 * 58112) and where rows r -+ 1 lie:
-// in this CTA, in another CTA of the cluster, or in another cluster;
-// -1 for a local row past the image.
+// its launch row (bits 0-19, rows <= 16 * 29056; RowMap) and where rows
+// r -+ 1 lie: in this CTA, in another CTA of the cluster, or in another
+// cluster (none: the image's edge, or K4's band edge, read from the halo
+// track without a wait); -1 for a local row past the launch's rows.
 #define K1_ROW_MASK 0xfffff
 #define K1_UP_MINE (1 << 20)
 #define K1_UP_CTA (1 << 21)
@@ -328,32 +435,38 @@ __device__ __forceinline__ void row_front(const WaveParams& p, float* hist,
 #define K1_DN_CTA (1 << 24)
 #define K1_DN_GPU (1 << 25)
 
-// One scan direction: block (x, i, k) is CTA x of the ncl clusters of
-// plane i, pair k (nc = cluster * ncl CTAs a unit; CTA x in cluster x /
-// cluster).  The rows come in bands of plan.band rows dealt out to the
-// unit's CTAs in turn (band b to CTA b mod nc), so that each CTA holds
-// rows all down the image and the rows live on a front (a contiguous
-// range in the sloped spaces) spread over every CTA; local row j of CTA
-// x is image row ((j / band) * nc + x) * band + j % band.  A warp takes
-// 32 / NL local rows at once, one a lane segment: rows w * 32/NL + h,
-// then w + warps ..., on every front, in that order.  done[j] counts the
-// fronts local row j has finished; a row whose neighbour lies in
-// another cluster also publishes the count to the global array `gdone`
-// tagged with the launch's epoch (epoch << 32 | count; earlier
-// launches' entries are smaller).  A row runs the recursions of a front
-// it has a pixel on, the u-th, once rows r -+ 1 have finished u fronts:
-// they have then written every front it reads (lags >= 1) and read
-// every front whose ring slot it overwrites (the ring keeps D + 1).
-// (Letting a row run ahead of its neighbours would need every lag to a
-// neighbour row to be 2 or more, and every fused schedule has a lag-1
-// dep on a neighbour row.)  A row only ever waits for an earlier front,
-// so no wait closes a cycle; with ncl > 1 the launch is refused unless
-// every cluster of the grid fits the card at once.
-template <int MODE, bool FH, bool W, bool G, int K, int NL>
-__global__ void __launch_bounds__(k1_max_threads(K))
-    fused_wavefront_cluster(const WaveParams p, const K1Plan plan,
-                            unsigned long long* gdone,
-                            unsigned long long epoch) {
+// One scan direction (K4: fronts step0 .. step0 + nsteps - 1 of one, on
+// a band), the body of both kernels below: block (x, i, k) is CTA x of
+// the ncl clusters of plane i, pair k (nc = cluster * ncl CTAs a unit;
+// CTA x in cluster x / cluster).  The
+// launch's rows (RowMap) come in bands of plan.band rows dealt out to
+// the unit's CTAs in turn (band b to CTA b mod nc), so that each CTA
+// holds rows all down the image and the rows live on a front (a
+// contiguous range in the sloped spaces) spread over every CTA; local
+// row j of CTA x is launch row ((j / band) * nc + x) * band + j % band.
+// A warp takes 32 / NL local rows at once, one a lane segment: rows
+// w * 32/NL + h, then w + warps ..., on every front, in that order.
+// done[j] counts the fronts of this launch local row j has finished; a
+// row whose neighbour lies in another cluster also publishes the count
+// to the global array `gdone` tagged with the launch's epoch (epoch <<
+// 32 | count; earlier launches' entries are smaller).  A row runs the
+// recursions of a front it has a pixel on, the u-th, once rows r -+ 1
+// have finished u fronts: they have then written every front it reads
+// (lags >= 1) and read every front whose ring slot it overwrites (the
+// ring keeps D + 1).  (Letting a row run ahead of its neighbours would
+// need every lag to a neighbour row to be 2 or more, and every fused
+// schedule has a lag-1 dep on a neighbour row.)  A row only ever waits
+// for an earlier front, so no wait closes a cycle; with ncl > 1 the
+// launch is refused unless every cluster of the grid fits the card at
+// once.  K4's counts start at 0 on front step0: the stream orders its
+// launches, so the ring rows of earlier blocks are final, and so is the
+// halo track, before the launch starts.
+template <int MODE, bool FH, bool W, bool G, int K, int NL, bool BAND>
+__device__ __forceinline__ void wavefront_body(const WaveParams& p,
+                                               const K1Plan& plan,
+                                               const BandTail& b,
+                                               unsigned long long* gdone,
+                                               unsigned long long epoch) {
   constexpr int RW = 32 / NL;  // rows a warp
   extern __shared__ int sm[];
   namespace cg = cooperative_groups;
@@ -366,6 +479,7 @@ __global__ void __launch_bounds__(k1_max_threads(K))
   const int warps = blockDim.x >> 5;
   const int rows = plan.rows, band = plan.band;
   const int groups = (rows + RW - 1) / RW;
+  const RowMap<BAND> rm{p, b};  // the launch's rows: rm.n()
   int* const done = sm;
   int* const table = sm + rows;
   // where CTA y's rows live: this CTA, the cluster, another cluster
@@ -377,11 +491,11 @@ __global__ void __launch_bounds__(k1_max_threads(K))
     done[j] = 0;
     const int r = ((j / band) * nc + x) * band + j % band;
     int e = -1;
-    if (r < p.R) {
+    if (r < rm.n()) {
       e = r;
       if (r > 0) e |= where((r - 1) / band % nc, K1_UP_MINE, K1_UP_CTA,
                             K1_UP_GPU);
-      if (r + 1 < p.R)
+      if (r + 1 < rm.n())
         e |= where((r + 1) / band % nc, K1_DN_MINE, K1_DN_CTA, K1_DN_GPU);
     }
     table[j] = e;
@@ -389,25 +503,28 @@ __global__ void __launch_bounds__(k1_max_threads(K))
   cluster.sync();  // every counter is 0 before any is read
   const int T = p.fstep * (p.C - 1) + p.slope * (p.R - 1) + 1;
   // pair k's ring: (D + 1, Ml, R) rows after the earlier pairs'
-  const size_t pair_rows = G ? (size_t)k * (p.D + 1) * p.Ml * p.R : 0;
+  const size_t pair_rows =
+      G ? (size_t)k * (p.D + 1) * p.Ml * rm.stride() : 0;
   float* const hist = p.hist + pair_rows * p.L;
   float* const mins = p.mins + pair_rows;
-  int t = p.reverse ? T - 1 : 0;
+  const int step0 = BAND ? b.step0 : 0;
+  const int steps = BAND ? (b.nsteps < T - step0 ? b.nsteps : T - step0) : T;
+  int t = p.reverse ? T - 1 - step0 : step0;
   int slot_t = t % (p.D + 1);  // front t's ring slot
-  for (int u = 0; u < T; ++u) {
+  for (int u = 0; u < steps; ++u) {
     for (int g = threadIdx.x >> 5; g < groups; g += warps) {
       const int j = g * RW + h;
       const int e = j < rows ? table[j] : -1;
-      // local rows map to rising image rows: none further either
+      // local rows map to rising launch rows: none further either
       if (!__any_sync(FULL_MASK, e >= 0)) break;
       const int r = e < 0 ? -1 : e & K1_ROW_MASK;
       // a neighbour in another CTA: counters through distributed shared
       // memory, in another cluster: through gdone
       const bool far = e >= 0 && (e & (K1_UP_CTA | K1_UP_GPU | K1_DN_CTA |
                                        K1_DN_GPU));
-      row_front<MODE, FH, W, G, K, NL>(
-          p, hist, mins, i, k, r, (e & K1_UP_MINE) != 0,
-          (e & K1_DN_MINE) != 0, t, slot_t, sl,
+      row_front<MODE, FH, W, G, K, NL, BAND>(
+          p, b, rm, hist, mins, i, k, r, (e & K1_UP_MINE) != 0,
+          (e & K1_DN_MINE) != 0, t, slot_t, u, sl,
           [&](bool live) {
             // every count is >= 0; gdone's may still hold an earlier
             // launch's
@@ -415,24 +532,24 @@ __global__ void __launch_bounds__(k1_max_threads(K))
             if (e & K1_UP_MINE) {
               wait_cta(done + j - 1, u);
             } else if (e & K1_UP_CTA) {  // the last row of the band above
-              const int b = (r - 1) / band;
+              const int bb = (r - 1) / band;
               wait_cluster(cluster.map_shared_rank(
-                               done + (b / nc) * band + band - 1,
-                               b % nc % plan.cluster),
+                               done + (bb / nc) * band + band - 1,
+                               bb % nc % plan.cluster),
                            u);
             } else if (e & K1_UP_GPU) {
-              wait_gpu(gdone + ((size_t)k * p.Mp + i) * p.R + r - 1,
+              wait_gpu(gdone + ((size_t)k * p.Mp + i) * rm.n() + r - 1,
                        epoch << 32 | (unsigned)u);
             }
             if (e & K1_DN_MINE) {
               wait_cta(done + j + 1, u);
             } else if (e & K1_DN_CTA) {  // the first row of the band below
-              const int b = (r + 1) / band;
-              wait_cluster(cluster.map_shared_rank(done + (b / nc) * band,
-                                                   b % nc % plan.cluster),
+              const int bb = (r + 1) / band;
+              wait_cluster(cluster.map_shared_rank(done + (bb / nc) * band,
+                                                   bb % nc % plan.cluster),
                            u);
             } else if (e & K1_DN_GPU) {
-              wait_gpu(gdone + ((size_t)k * p.Mp + i) * p.R + r + 1,
+              wait_gpu(gdone + ((size_t)k * p.Mp + i) * rm.n() + r + 1,
                        epoch << 32 | (unsigned)u);
             }
           },
@@ -444,7 +561,7 @@ __global__ void __launch_bounds__(k1_max_threads(K))
               } else {
                 publish_cluster(done + j, u + 1);
                 if (e & (K1_UP_GPU | K1_DN_GPU))
-                  publish_gpu(gdone + ((size_t)k * p.Mp + i) * p.R + r,
+                  publish_gpu(gdone + ((size_t)k * p.Mp + i) * rm.n() + r,
                               epoch << 32 | (unsigned)(u + 1));
               }
             }
@@ -461,15 +578,38 @@ __global__ void __launch_bounds__(k1_max_threads(K))
   cluster.sync();  // no CTA leaves while a neighbour may read its counters
 }
 
-// Launches one scan direction with the plan's sizes, or, with `fit`,
-// only stores there how many clusters of the plan's shape (cluster,
-// CTA size, shared memory) the card holds at once.
+// K1's kernel and K4's: one body, two names (so a profile tells them
+// apart).
 template <int MODE, bool FH, bool W, bool G, int K, int NL>
-int launch(const WaveParams& p, const K1Plan& plan, unsigned long long* gdone,
-           unsigned long long epoch, cudaStream_t s, int* fit) {
-  void (*kern)(const WaveParams, const K1Plan, unsigned long long*,
-               unsigned long long) =
-      fused_wavefront_cluster<MODE, FH, W, G, K, NL>;
+__global__ void __launch_bounds__(k1_max_threads(K))
+    fused_wavefront_cluster(const WaveParams p, const K1Plan plan,
+                            const BandTail b, unsigned long long* gdone,
+                            unsigned long long epoch) {
+  wavefront_body<MODE, FH, W, G, K, NL, false>(p, plan, b, gdone, epoch);
+}
+
+template <int MODE, bool FH, bool W, bool G, int K, int NL>
+__global__ void __launch_bounds__(k1_max_threads(K))
+    fused_block_cluster(const WaveParams p, const K1Plan plan,
+                        const BandTail b, unsigned long long* gdone,
+                        unsigned long long epoch) {
+  wavefront_body<MODE, FH, W, G, K, NL, true>(p, plan, b, gdone, epoch);
+}
+
+// Launches one scan direction (K4: one block on a band, `b`) with the
+// plan's sizes, or, with `fit`, only stores there how many clusters of
+// the plan's shape (cluster, CTA size, shared memory) the card holds at
+// once.
+template <int MODE, bool FH, bool W, bool G, int K, int NL, bool BAND>
+int launch(const WaveParams& p, const K1Plan& plan, const BandTail& b,
+           unsigned long long* gdone, unsigned long long epoch,
+           cudaStream_t s, int* fit) {
+  void (*kern)(const WaveParams, const K1Plan, const BandTail,
+               unsigned long long*, unsigned long long);
+  if constexpr (BAND)
+    kern = fused_block_cluster<MODE, FH, W, G, K, NL>;
+  else
+    kern = fused_wavefront_cluster<MODE, FH, W, G, K, NL>;
   cudaError_t err = cudaSuccess;
   if (plan.cluster > 8)
     err = cudaFuncSetAttribute(
@@ -505,40 +645,72 @@ int launch(const WaveParams& p, const K1Plan& plan, unsigned long long* gdone,
   if (active < 1 ||
       (plan.ncl > 1 && (long long)plan.ncl * p.Mp * p.npair > active))
     return MGM_ERR_NO_CLUSTER;
-  err = cudaLaunchKernelEx(&cfg, kern, p, plan, gdone, epoch);
+  err = cudaLaunchKernelEx(&cfg, kern, p, plan, b, gdone, epoch);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }
 
-typedef int (*Launch)(const WaveParams&, const K1Plan&, unsigned long long*,
-                      unsigned long long, cudaStream_t, int*);
+typedef int (*Launch)(const WaveParams&, const K1Plan&, const BandTail&,
+                      unsigned long long*, unsigned long long, cudaStream_t,
+                      int*);
 
-template <int MODE, bool FH, bool W, bool G>
+template <int MODE, bool FH, bool W, bool G, bool BAND>
 Launch pick_k(int L) {
   switch (labels_a_lane(L)) {
-    case 3: return launch<MODE, FH, W, G, 3, 16>;
-    case 2: return launch<MODE, FH, W, G, 2, 32>;
-    case 5: return launch<MODE, FH, W, G, 5, 32>;
-    case 6: return launch<MODE, FH, W, G, 6, 32>;
-    case 32: return launch<MODE, FH, W, G, 32, 32>;
+    case 3: return launch<MODE, FH, W, G, 3, 16, BAND>;
+    case 2: return launch<MODE, FH, W, G, 2, 32, BAND>;
+    case 5: return launch<MODE, FH, W, G, 5, 32, BAND>;
+    case 6: return launch<MODE, FH, W, G, 6, 32, BAND>;
+    case 32: return launch<MODE, FH, W, G, 32, 32, BAND>;
     default: return nullptr;
   }
 }
 
-template <int MODE, bool FH>
+template <int MODE, bool FH, bool BAND>
 Launch pick_wg(bool w, bool g, int L) {
   if (w)
-    return g ? pick_k<MODE, FH, true, true>(L)
-             : pick_k<MODE, FH, true, false>(L);
-  return g ? pick_k<MODE, FH, false, true>(L)
-           : pick_k<MODE, FH, false, false>(L);
+    return g ? pick_k<MODE, FH, true, true, BAND>(L)
+             : pick_k<MODE, FH, true, false, BAND>(L);
+  return g ? pick_k<MODE, FH, false, true, BAND>(L)
+           : pick_k<MODE, FH, false, false, BAND>(L);
 }
 
 // The instance of cost family MODE for the launch's potential, weights,
-// windows or pairs and labels (nullptr beyond MGM_MAX_LABELS); each
-// family's instances compile in a file of their own
-// (fused_wavefront_<family>.cu), so the five build in parallel.
-template <int MODE>
+// windows or pairs and labels (nullptr beyond MGM_MAX_LABELS), K1's or
+// K4's (BAND); each family's instances compile in a file of their own
+// (fused_wavefront_<family>.cu, fused_block_<family>.cu), so the ten
+// build in parallel.
+template <int MODE, bool BAND>
 Launch pick(bool fh, bool w, bool g, int L) {
-  return fh ? pick_wg<MODE, true>(w, g, L) : pick_wg<MODE, false>(w, g, L);
+  return fh ? pick_wg<MODE, true, BAND>(w, g, L)
+            : pick_wg<MODE, false, BAND>(w, g, L);
+}
+
+// Whether a launch's parameters and plan lie inside the kernel's limits:
+// K1's checks, the plan's bands on the launch's `rows` (the image's, or
+// K4's band rows in the image).
+inline bool k1_params_ok(const WaveParams& p, const K1Plan& plan, int rows) {
+  if (p.L < 1 || p.L > MGM_MAX_LABELS || p.Mp < 1 ||
+      p.Mp > MGM_MAX_PLANES || p.Ml > MGM_MAX_RECS || p.mgm < 1 ||
+      p.mgm > MGM_MAX_RANKS || p.fstep < 1 || p.fstep > 2 || p.slope < 0 ||
+      p.nch < 1 || p.R < 1 || p.R > (1 << 20) || rows < 1 ||
+      rows > (1 << 20) || p.npair < 1 || p.npair > 65535 || p.nsides < 1 ||
+      p.Mp % p.nsides != 0 || (p.lo_px == nullptr) != (p.hi_px == nullptr))
+    return false;
+  // every dep reads rows r -+ 1 at most: the row counts order nothing
+  // farther
+  for (int m = 0; m < p.Ml; ++m)
+    for (int j = 0; j < p.mgm; ++j) {
+      const int ci = p.rec_ranks[m][j];
+      if (ci >= MGM_MAX_COMBOS || p.combo_roll[ci] < -1 ||
+          p.combo_roll[ci] > 1 || p.combo_lag[ci] < 1 ||
+          p.combo_lag[ci] > p.D)
+        return false;
+    }
+  const long long bands = (rows + (long long)plan.band - 1) / plan.band;
+  const long long ctas = (long long)plan.cluster * plan.ncl;
+  return plan.cluster >= 1 && plan.cluster <= 16 && plan.ncl >= 1 &&
+         plan.band >= 1 && bands >= ctas &&
+         plan.rows == (bands + ctas - 1) / ctas * plan.band &&
+         plan.smem >= 8 * plan.rows && plan.smem <= 232448;
 }

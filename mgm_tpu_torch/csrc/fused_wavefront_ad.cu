@@ -2,5 +2,5 @@
 #include "fused_wavefront.cuh"
 
 Launch k1_pick_ad(bool fh, bool w, bool g, int L) {
-  return pick<MGM_COST_AD>(fh, w, g, L);
+  return pick<MGM_COST_AD, false>(fh, w, g, L);
 }

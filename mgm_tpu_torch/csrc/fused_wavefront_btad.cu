@@ -2,5 +2,5 @@
 #include "fused_wavefront.cuh"
 
 Launch k1_pick_btad(bool fh, bool w, bool g, int L) {
-  return pick<MGM_COST_BTAD>(fh, w, g, L);
+  return pick<MGM_COST_BTAD, false>(fh, w, g, L);
 }

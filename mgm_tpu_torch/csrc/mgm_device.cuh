@@ -1,10 +1,10 @@
 // Device functions shared by the port's kernels: the pointwise matching
-// costs (K1 computes them in flight, K8 into a volume) and the MGM
-// messages (K1, K4 and K5).  One definition each, so the kernels agree with
+// costs (K1 and K4 compute them in flight, K8 into a volume) and the SGM
+// message (K1, K4 and K5).  One definition each, so the kernels agree with
 // each other and with the plain PyTorch versions they are held against
-// (ops/cuda_cost.pointwise_cost, ops/wavefront._sgm_msg / _fh_msg);
-// K1 runs fh_msg's doubling in registers across a warp's lanes
-// (csrc/fused_wavefront.cu), step for step.
+// (ops/cuda_cost.pointwise_cost, ops/wavefront._sgm_msg); the FH message's
+// min-plus doubling runs in registers across a warp's lanes
+// (csrc/warp_rows.cuh), step for step as ops/wavefront._fh_msg.
 // Built with --fmad=false and no fast math: every sum and product
 // rounds on its own, and inf/NaN behave as IEEE says.
 #pragma once
@@ -22,13 +22,6 @@ __device__ __forceinline__ float nmin(float a, float b) {
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
-}
-
-// The NaN-keeping minimum of v over the warp (every lane gets it).
-__device__ __forceinline__ float warp_min(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = nmin(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
 }
 
 // One channel's term of the ad / sd cost: |u - v|, squared for sd.
@@ -94,32 +87,4 @@ __device__ __forceinline__ float pointwise_cost(int mode, const void* left,
 __device__ __forceinline__ float sgm_msg(float lk, float lm, float lp,
                                          float mk, float p1w, float p2w) {
   return nmin(nmin(lk, nmin(lm, lp) + p1w), mk + p2w) - mk;
-}
-
-// Truncated-linear (FH) message of label l = threadIdx.x: the min over
-// labels j of Lk[j] + P1w*|l - j|, capped at mk + P2w, minus mk, by
-// min-plus doubling up then down (mgm_core.cc:152-163 in 2*ceil(log2 L)
-// steps; pallas_wavefront._fh_msg).  v is Lk[l], +inf for the lanes
-// l >= L, which read +inf beyond the labels.  `buf` holds blockDim.x
-// floats of shared memory.  Each step writes buf, waits, reads its
-// neighbour and waits again before the next write, so EVERY thread of
-// the block must call this: mask lanes through v, never by skipping it.
-__device__ __forceinline__ float fh_msg(float* buf, float v, int L,
-                                        float mk, float p1w, float p2w) {
-  const int l = threadIdx.x;
-  for (int s = 1; s < L; s *= 2) {
-    buf[l] = v;
-    __syncthreads();
-    const float sh = l < L && l >= s ? buf[l - s] : INFINITY;
-    v = nmin(v, sh + p1w * (float)s);
-    __syncthreads();
-  }
-  for (int s = 1; s < L; s *= 2) {
-    buf[l] = v;
-    __syncthreads();
-    const float sh = l + s < L ? buf[l + s] : INFINITY;
-    v = nmin(v, sh + p1w * (float)s);
-    __syncthreads();
-  }
-  return nmin(v, mk + p2w) - mk;
 }

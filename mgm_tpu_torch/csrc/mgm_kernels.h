@@ -43,8 +43,8 @@ struct WaveParams {
   // (col = (t - a0 + ssgn * slope * r) / fstep, the row sitting out
   // fronts where that does not divide), side, whether it folds
   // kappa*CC, and the recursions that sum into it, in recursion order.
-  // The small tables are bytes: the struct goes with every launch (K4:
-  // every front), and bytes keep it at 888 (int tables: 2,708).
+  // The small tables are bytes: the struct goes with every launch, and
+  // bytes keep it at 888 (int tables: 2,708).
   int plane_gmin[MGM_MAX_PLANES], plane_lo[MGM_MAX_PLANES];
   int plane_hi[MGM_MAX_PLANES], plane_a0[MGM_MAX_PLANES];
   signed char plane_side[MGM_MAX_PLANES], plane_ssgn[MGM_MAX_PLANES];
@@ -72,22 +72,25 @@ struct K1Plan {
   int cluster, ncl, rows, band, smem;
 };
 
-// K4's band of rows under row sharding (parallel/fused_shard.py).
+// K4's band of rows under row sharding (parallel/fused_shard.py); K1
+// passes zeros.
 struct BandTail {
-  // (2 * G, Ml, L): the neighbour band's row that this band's edge row
-  // reads, for the steps step0 - G .. step0 + G - 1, or 0 (rows outside
-  // the band read +inf)
+  // (2 * G, Ml, L): the ring of the neighbour band's row that this
+  // band's edge row reads, step s at entry s mod 2G (the tracks of the
+  // blocks before and of this one), or 0 (rows outside the band read
+  // +inf)
   const float* halo;
   float* ship;         // (G, Ml, L): row ship_row of each step, or 0
   int r0;              // image row of local row 0 (< 0 in a top apron)
-  int Rl;              // local rows: the grid's and the ring's
+  int Rl;              // local rows: the ring's
   int out_off, out_R;  // out holds local rows out_off .. out_off+out_R-1
   int ship_row;        // -1 without a ship track
   int G, step0, nsteps;  // the block: steps step0 .. step0 + nsteps - 1
 };
 
 // One block of K4: K1's launch (w.R the image's rows, w.hist/w.mins the
-// band's (D + 1, Ml, Rl, L) ring, w.out (Mp, out_R, C, L)) on a band.
+// band's (D + 1, Ml, Rl, L) ring, w.out (Mp, out_R, C, L)) on a band;
+// the launch plan (K1Plan) is sized on the band's rows in the image.
 struct BandParams {
   WaveParams w;
   BandTail b;

@@ -122,7 +122,7 @@ __device__ __forceinline__ void fh_up_step(float (&v)[K], float c, int sl) {
 }
 
 // One downward step: v[l] = nmin(v[l], v_old[l + S] + c); labels >= L
-// must hold +inf (they read as fh_msg's "l + s >= L").
+// must hold +inf (they read as _fh_msg's shift fill beyond L).
 template <int K, int NL, int S>
 __device__ __forceinline__ void fh_down_step(float (&v)[K], float c,
                                              int sl) {
@@ -138,8 +138,9 @@ __device__ __forceinline__ void fh_down_step(float (&v)[K], float c,
   }
 }
 
-// fh_msg's doubling of the first mgm deps' rows v[j] at once (their
-// steps interleave), s = 2^E while s < L, p1w[j] * (float)s as there.
+// The min-plus doubling of ops/wavefront._fh_msg on the first mgm deps'
+// rows v[j] at once (their steps interleave), s = 2^E while s < L,
+// p1w[j] * (float)s as there.
 template <int K, int NL, int E = 0>
 __device__ __forceinline__ void fh_up(float (&v)[MGM_MAX_RANKS][K],
                                       const float (&p1w)[MGM_MAX_RANKS],

@@ -27,7 +27,7 @@
 // planes on 16-lane segments in lockstep (rows of one plane never share
 // a warp: the lower would wait on the upper).  The W message comes from
 // the registers of the previous column; the messages are warp_rows.cuh's
-// shuffles (the SGM label neighbours, FH's doubling in fh_msg's order of
+// shuffles (the SGM label neighbours, FH's doubling in _fh_msg's order of
 // steps), the minimum its segment minimum.  The rows come in bands of
 // plan.warps rows of one plane group, band beta (rows (beta / MP) *
 // warps ..., plane group beta % MP) to CTA beta mod ctas, row j of the

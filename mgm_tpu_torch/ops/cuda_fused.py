@@ -21,8 +21,10 @@ plain PyTorch version and a launch counter:
      rank's band of rows under row sharding (parallel/fused_shard.py),
      the ring carried from block to block, rows beyond the band read
      from the neighbour's halo track and the band's edge row shipped.
-     It keeps K1's per-front design (csrc/fused_front.cuh: one launch a
-     front, one thread a label), with K1's arithmetic at every pixel.
+     It is K1's kernel with the template flag BAND, one launch a block
+     (`k4_plan` sizes it from the band's rows), with K1's arithmetic at
+     every pixel; `bind_block` builds its fixed arguments once for a
+     run of blocks.
 
 The per-label cost and the messages are defined once on each side:
 csrc/mgm_device.cuh on the card (shared with K5 and K8), and
@@ -133,17 +135,19 @@ def _lib() -> ctypes.CDLL:
     structs checked against the C layout."""
     lib = _build.load()
     for name, structs in (("mgm_fused_wavefront", (_WaveParams, _K1Plan)),
-                          ("mgm_fused_block", (_BandParams,)),
+                          ("mgm_fused_block", (_BandParams, _K1Plan)),
                           ("mgm_wta", (_WtaParams,))):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(st) for st in structs]
-        if name == "mgm_fused_wavefront":  # K1's cross-cluster counts
+        if name != "mgm_wta":  # K1's and K4's cross-cluster counts
             fn.argtypes += [ctypes.c_void_p, ctypes.c_ulonglong]
         fn.argtypes += [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.mgm_k1_fit.argtypes = [ctypes.POINTER(_WaveParams),
-                               ctypes.POINTER(_K1Plan)]
-    lib.mgm_k1_fit.restype = ctypes.c_int
+    for name, params in (("mgm_k1_fit", _WaveParams),
+                         ("mgm_k4_fit", _BandParams)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(params), ctypes.POINTER(_K1Plan)]
+        fn.restype = ctypes.c_int
     for size_name, struct in (("mgm_wave_params_size", _WaveParams),
                               ("mgm_k1_plan_size", _K1Plan),
                               ("mgm_band_params_size", _BandParams),
@@ -282,10 +286,11 @@ def fused_block_plain(left, right, out, hist, mins, *, step0, nsteps,
       block to block (K1's ring).
     out: (Mp / nsides * N, out_R, C, L); local row r writes out row
       r - out_off when that lies in [0, out_R).
-    halo: (2G, Ml, L) the neighbour band's row that this band's edge
-      row reads, for the steps step0 - G .. step0 + G - 1 (its minimum
-      is recomputed, min being exact in any order), or None: rows
-      outside the band read +inf.
+    halo: (2G, Ml, L) the ring of the neighbour band's row that this
+      band's edge row reads, step s at entry s mod 2G (the tracks of
+      the block before and of this one; its minimum is recomputed, min
+      being exact in any order), or None: rows outside the band read
+      +inf.
     ship: (G, Ml, L), or None: step step0 + u of the block writes local
       row `ship_row` of each recursion into ship[u], the track the
       neighbour band's halo takes.
@@ -372,7 +377,7 @@ def fused_block_plain(left, right, out, hist, mins, *, step0, nsteps,
                 if abs(roll) != 1:
                     raise ValueError(f"a halo serves row rolls of 1, got "
                                      f"{roll}")
-                h = halo[u - lag + G]
+                h = halo[(step - lag) % (2 * G)]
                 f = _edge_shift(f, roll, h)
                 mn = _edge_shift(mn, roll, h.amin(-1))
             elif roll:
@@ -632,56 +637,159 @@ fused_wavefront.launches = 0
 
 # ---------------------------------------------------------------- K4 ----
 
-def fused_block(left, right, out, hist, mins, *, step0, nsteps, G,
-                accumulate, planes, mspecs, combos, L, slope, fstep, mgm,
-                mode, tmax, p1, p2, kappa, reverse, use_fh=False, w8=None,
-                lo_px=None, hi_px=None, fh_restrict=False, r0=0, out_off=0,
-                halo=None, ship=None, ship_row=-1):
-    """K4: G scan steps of one K1 launch on a band of rows, the
-    recursion's ring carried (arguments as in fused_block_plain, one
-    image pair; G >= the deepest lag, nsteps <= G).  CPU tensors take
-    the plain version; CUDA tensors launch csrc/fused_block.cu, one
-    front kernel a step on the current stream of the tensors' card; it
-    never falls back to the plain version."""
-    kw = dict(accumulate=accumulate, planes=planes, mspecs=mspecs,
-              combos=combos, L=L, slope=slope, fstep=fstep, mgm=mgm,
-              mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
-              reverse=reverse, use_fh=use_fh, w8=w8, lo_px=lo_px,
-              hi_px=hi_px, fh_restrict=fh_restrict)
+def band_rows(r0: int, Rl: int, R: int) -> tuple[int, int]:
+    """The rows K4 runs on a band of Rl local rows whose local row 0 is
+    image row r0, in an image of R rows: (lo, n), the local rows lo ..
+    lo + n - 1 that lie in the image (csrc/fused_wavefront.cuh
+    row_map); aprons above row 0 and the last band's padding are never
+    run and never read."""
+    lo = max(0, -r0)
+    return lo, min(Rl, R - r0) - lo
+
+
+def k4_plan(rows: int, L: int, Mp: int, sms: int, share: int = 1,
+            fits=None) -> K1Plan:
+    """K4's launch plan for a band's `rows` rows in the image (band_rows),
+    L labels and Mp planes of one pair, a pure function of its
+    arguments: K1's plan (k1_plan) on the share of the card's `sms` SMs
+    that each of `share` ranks gets when their blocks run on the card at
+    once, so that every rank's clusters fit it together (`fits`, the
+    kernel's occupancy on the whole card, is divided alike).  A shape
+    the card cannot hold raises: rows beyond the kernel, or a cluster
+    the card holds none of."""
+    if not 1 <= share <= sms:
+        raise ValueError(f"k4_plan: {share} ranks on a card of {sms} SMs")
+    held = None if fits is None else (lambda pl: fits(pl) // share)
+    plan = k1_plan(rows, L, Mp, 1, sms // share, held)
+    if fits is not None and fits(plan) < 1:
+        raise ValueError(f"k4_plan: the card holds no cluster of {plan} for "
+                         f"{rows} rows, L {L}, {Mp} planes")
+    return plan
+
+
+def _k4_launcher(left, right, out, hist, mins, *, nsteps, G, accumulate,
+                 planes, mspecs, combos, L, slope, fstep, mgm, mode, tmax,
+                 p1, p2, kappa, reverse, use_fh=False, w8=None, lo_px=None,
+                 hi_px=None, fh_restrict=False, r0=0, out_off=0, halo=None,
+                 ship=None, ship_row=-1, share=1):
+    """K4 on CUDA tensors for a run of blocks on one band: the parameter
+    block, the plan (k4_plan) and the occupancy query made once; returns
+    step(step0), which launches the block of steps step0 .. step0 +
+    nsteps - 1 on the current stream of the tensors' card."""
     dev = left.device
-    if dev.type == "cpu":
-        return fused_block_plain(left, right, out, hist, mins, step0=step0,
-                                 nsteps=nsteps, G=G, r0=r0, out_off=out_off,
-                                 halo=halo, ship=ship, ship_row=ship_row,
-                                 **kw)
     if dev.type != "cuda":
         raise ValueError(f"fused_block: unsupported device {dev}")
-    Ml, rows = len(mspecs), hist.shape[-2]
+    Ml, Rl = len(mspecs), hist.shape[-2]
     D = max(lag for lag, _ in combos)
-    if (not 0 < nsteps <= G or G < D or step0 < 0
-            or not -1 <= ship_row < rows or (ship is None) != (ship_row < 0)
-            or hist.ndim != 4):
+    _, R, C, _ = left.shape
+    T = fstep * (C - 1) + slope * (R - 1) + 1
+    _, nr = band_rows(r0, Rl, R)
+    if (not 0 < nsteps <= G or G < D or nr < 1 or hist.ndim != 4
+            or not -1 <= ship_row < Rl or (ship is None) != (ship_row < 0)):
         raise ValueError(f"fused_block: {nsteps} steps of a {G}-step block "
-                         f"(lags up to {D}), ship row {ship_row} of {rows}")
+                         f"(lags up to {D}), {Rl} band rows from image row "
+                         f"{r0} ({nr} in the image), ship row {ship_row}")
     if halo is not None:
         _check("halo", halo, (2 * G, Ml, L), dev)
     if ship is not None:
         _check("ship", ship, (G, Ml, L), dev)
     w = _wave_params("fused_block", left, right, out, hist, mins,
-                     out_rows=out.shape[1], npair=1, **kw)
+                     out_rows=out.shape[1], accumulate=accumulate,
+                     planes=planes, mspecs=mspecs, combos=combos, L=L,
+                     slope=slope, fstep=fstep, mgm=mgm, mode=mode, tmax=tmax,
+                     p1=p1, p2=p2, kappa=kappa, reverse=reverse,
+                     use_fh=use_fh, w8=w8, lo_px=lo_px, hi_px=hi_px,
+                     fh_restrict=fh_restrict, npair=1)
     p = _BandParams(w=w, halo=None if halo is None else halo.data_ptr(),
                     ship=None if ship is None else ship.data_ptr(), r0=r0,
-                    Rl=rows, out_off=out_off, out_R=out.shape[1],
-                    ship_row=ship_row, G=G, step0=step0, nsteps=nsteps)
+                    Rl=Rl, out_off=out_off, out_R=out.shape[1],
+                    ship_row=ship_row, G=G, step0=0, nsteps=nsteps)
+    lib = _lib()
+    inst = ("k4", dev.index, mode, bool(use_fh), w8 is not None,
+            lo_px is not None, L)
+
+    def fits(pl):  # the card's occupancy for this instance and shape
+        key = inst + (pl.cluster, pl.rows, pl.smem)
+        if key not in _FITS:
+            _FITS[key] = lib.mgm_k4_fit(ctypes.byref(p),
+                                        ctypes.byref(_K1Plan(*pl)))
+        return _FITS[key]
+
     with torch.cuda.device(dev):
-        err = _lib().mgm_fused_block(ctypes.byref(p), _stream(dev))
-    if err:
-        raise RuntimeError(f"fused_block: CUDA error {err}")
-    fused_block.launches += 1
+        plan = k4_plan(nr, L, len(planes), _sms(dev.index), share, fits)
+    kplan = _K1Plan(*plan)
+    # the parameter block holds raw pointers: the tensors live as long as
+    # the launcher (a caller may drop its own references between blocks)
+    tensors = (left, right, out, hist, mins, w8, lo_px, hi_px, halo, ship)
+
+    def step(step0: int) -> None:
+        if not 0 <= step0 < T:
+            raise ValueError(f"fused_block: step {step0} of {T}")
+        p.step0 = step0
+        with torch.cuda.device(dev):
+            gdone, epoch = (_gdone(dev, len(planes) * nr)
+                            if plan.ncl > 1 else (None, 0))
+            err = lib.mgm_fused_block(
+                ctypes.byref(p), ctypes.byref(kplan),
+                None if gdone is None else gdone.data_ptr(), epoch,
+                _stream(dev))
+        if err:
+            why = ("no cluster of this size fits the card" if err == -1
+                   else f"CUDA error {err}")
+            raise RuntimeError(f"fused_block: {why}: {plan} for {nr} of "
+                               f"{Rl} band rows from image row {r0}, "
+                               f"{R}x{C}, L={L}, {len(planes)} planes, "
+                               f"steps {step0} + {nsteps}")
+        fused_block.launches += 1
+
+    step.tensors = tensors
+    return step
+
+
+def fused_block(left, right, out, hist, mins, *, step0, nsteps, G,
+                accumulate, planes, mspecs, combos, L, slope, fstep, mgm,
+                mode, tmax, p1, p2, kappa, reverse, use_fh=False, w8=None,
+                lo_px=None, hi_px=None, fh_restrict=False, r0=0, out_off=0,
+                halo=None, ship=None, ship_row=-1, share=1):
+    """K4: G scan steps of one K1 launch on a band of rows, the
+    recursion's ring carried (arguments as in fused_block_plain, one
+    image pair; G >= the deepest lag, nsteps <= G; `share`: the ranks
+    whose blocks run on the card at once, k4_plan).  CPU tensors take
+    the plain version; CUDA tensors launch csrc/fused_block.cu once on
+    the current stream of the tensors' card, the block's fronts stepped
+    inside the kernel; a launch the card refuses raises, and it never
+    falls back to the plain version.  A run of blocks on one band takes
+    bind_block, which builds the launch once."""
+    kw = dict(nsteps=nsteps, G=G, accumulate=accumulate, planes=planes,
+              mspecs=mspecs, combos=combos, L=L, slope=slope, fstep=fstep,
+              mgm=mgm, mode=mode, tmax=tmax, p1=p1, p2=p2, kappa=kappa,
+              reverse=reverse, use_fh=use_fh, w8=w8, lo_px=lo_px,
+              hi_px=hi_px, fh_restrict=fh_restrict, r0=r0, out_off=out_off,
+              halo=halo, ship=ship, ship_row=ship_row)
+    if left.device.type == "cpu":
+        return fused_block_plain(left, right, out, hist, mins, step0=step0,
+                                 **kw)
+    _k4_launcher(left, right, out, hist, mins, share=share, **kw)(step0)
     return out
 
 
 fused_block.launches = 0
+
+
+def bind_block(kernel, left, right, out, hist, mins, *, share=1, **kw):
+    """`kernel` (K4, fused_block, or its plain version) with every
+    argument but the block's first step bound, for a run of blocks on
+    one band: returns step(step0).  K4 on CUDA tensors builds its
+    parameter block, plan and occupancy query once (`share` as for
+    fused_block); anything else is called with the arguments as they
+    are."""
+    if kernel is fused_block and left.device.type == "cuda":
+        return _k4_launcher(left, right, out, hist, mins, share=share, **kw)
+
+    def step(step0: int) -> None:
+        kernel(left, right, out, hist, mins, step0=step0, **kw)
+
+    return step
 
 
 # ---------------------------------------------------------------- K2 ----

@@ -4,9 +4,15 @@ of mgm_tpu/parallel/fused_shard.py).
 Every rank holds its band of image rows (shard.py) and the whole
 images, weights and windows (megabytes; the (planes, rows, C, L) volume
 is what is sharded).  It steps K4 (cuda_fused.fused_block: a block of G
-scan steps of K1's recursion on the band's rows, the ring carried from
-block to block) and exchanges boundary rows between blocks, so that
-each band's volume is bitwise the single-device K1 volume's rows:
+scan steps of K1's recursion on the band's rows in one launch, the ring
+carried from block to block) and exchanges boundary rows between
+blocks, so that each band's volume is bitwise the single-device K1
+volume's rows.  K4's fixed arguments are bound once a sub-launch or
+lockstep group (cuda_fused.bind_block), so a block's call sets only its
+first step.  In one process each rank runs on its own CUDA stream
+(RowMesh.stream) and the exchanges are ordered by CUDA events: nothing
+in the recursion waits on the host, and ranks that share a card
+overlap on it as on cards of their own.
 
   - A/B groups (skewed fronts, slope 1 or 2) run as a staggered one-way
     pipeline.  K1 runs A and B in one launch, whose row rolls have both
@@ -16,10 +22,11 @@ each band's volume is bitwise the single-device K1 volume's rows:
     (sigma - (n - 1 - k) when they read the row below), so a band runs
     block b one superstep after its upstream neighbour.  After each
     superstep a rank ships the (G, Ml, L) track of its edge row (K4's
-    ship) to the downstream rank, which keeps the last two (2G, Ml, L)
-    as the halo its first row reads (every dep reaches back at most
-    D <= 3 < G steps).  A band skips the blocks in which it has no
-    pixel.
+    ship) to the downstream rank, into slot b mod 2 of its halo, a ring
+    of two G-step tracks (step s at entry s mod 2G), which its first
+    row reads in block b, and block b - 1's track in the other slot
+    (every dep reaches back at most D <= 3 < G steps).  A band skips
+    the blocks in which it has no pixel.
   - V (slope-0 column fronts) and the parity spaces PA/PB read rows
     above and below, so no one-way order exists.  Every rank runs every
     block of B = min(G, Rl) steps in lockstep over its band extended by
@@ -27,9 +34,9 @@ each band's volume is bitwise the single-device K1 volume's rows:
     further each step, so after B steps only the aprons are wrong, and
     between blocks each rank refreshes its aprons' ring rows from the
     neighbours' band rows (JAX's lockstep apron scheme,
-    fused_shard.py:343-351).  The port does not pack half-rows
-    (csrc/fused_wavefront.cu), so the parity group's aprons are image
-    rows, as V's are.
+    fused_shard.py:343-351), copied straight between the rings' rows.
+    The port does not pack half-rows (csrc/fused_wavefront.cu), so the
+    parity group's aprons are image rows, as V's are.
 
 The border rule and the front map use image rows against the image's
 R; rows past R (the last band's padding) and above row 0 are skipped.
@@ -38,15 +45,21 @@ as on one device.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..ops import cuda_fused
 from ..ops.common import INF
 from ..ops.fused import group_launches, split_passes
 
-# scan steps a block (mgm_tpu's G, fused_shard.py:312, and its V and
-# parity blocks, :552 and :646)
-BLOCK = 32
+# scan steps a block (mgm_tpu's G is 32, fused_shard.py:312, :552, :646).
+# Any G >= the deepest lag gives the same bits.  64: against 32, half the
+# launches and hand-offs of a block (on one H100, cfg1's recursion over 4
+# ranks 39.8 -> 31.5 ms, cfg1_tsgm4's 130 -> 68 ms), for a stagger bubble
+# (nb + n - 1) / nb on cards of their own of 1.05 against 1.03 at 2
+# ranks (PERF.md section 6)
+BLOCK = 64
 
 
 def sharded_eligible(ndir: int, mgm: int, distance: str) -> bool:
@@ -63,13 +76,15 @@ def sharded_fused_planes(lefts, rights, *, mesh, sides, L: int, groups,
                          mgm: int, p1: float, p2: float, mode: str,
                          tmax: float, kappa: float, use_fh: bool = False,
                          w8=None, lo_px=None, hi_px=None,
-                         fh_restrict: bool = False, block: int = BLOCK,
+                         fh_restrict: bool = False, block: int | None = None,
                          kernel=None):
     """Every launch of `groups` (split_passes, no leftover passes) over
-    the mesh's row bands, through `kernel` (K4, cuda_fused.fused_block,
-    when None; the smoke run passes its plain version to compare).  The
-    counterpart of mgm_tpu's sharded_fused_lsum before its space sum:
-    K2 sums each band's spaces as on one device.
+    the mesh's row bands in blocks of `block` steps (BLOCK when None;
+    any block >= the deepest lag gives the same bits), through `kernel`
+    (K4, cuda_fused.fused_block, when None; the smoke run passes its
+    plain version to compare).  The counterpart of mgm_tpu's
+    sharded_fused_lsum before its space sum: K2 sums each band's spaces
+    as on one device.
 
     lefts/rights: (N, H, W, nch) images of each side of one pair as K1
     takes them; w8, lo_px/hi_px: as for ops.fused.fused_planes; all on
@@ -81,13 +96,16 @@ def sharded_fused_planes(lefts, rights, *, mesh, sides, L: int, groups,
     N, H, C, _ = lefts.shape
     rl = mesh.band(H)
     nspaces = sum(len(spaces) for _, spaces, _ in groups)
-    run = _Run(mesh, kernel, H=H, C=C, rl=rl, block=block, inputs=dict(
-        left=lefts, right=rights, w8=w8, lo_px=lo_px, hi_px=hi_px),
-        common=dict(L=L, mgm=mgm, mode=mode, tmax=tmax, p1=p1, p2=p2,
-                    kappa=kappa, use_fh=use_fh, fh_restrict=fh_restrict))
+    run = _Run(mesh, kernel, H=H, C=C, rl=rl, block=block or BLOCK,
+               inputs=dict(left=lefts, right=rights, w8=w8, lo_px=lo_px,
+                           hi_px=hi_px),
+               common=dict(L=L, mgm=mgm, mode=mode, tmax=tmax, p1=p1,
+                           p2=p2, kappa=kappa, use_fh=use_fh,
+                           fh_restrict=fh_restrict))
     vols = {k: torch.empty((nspaces * N, min(rl, H - k * rl), C, L),
                            dtype=torch.float32, device=mesh.devices[k])
             for k in mesh.local}
+    run.join(into_ranks=True)   # the inputs and volumes are made
     first = 0
     for g, group in enumerate(groups):
         parts = {k: v[first * N:(first + len(group[1])) * N]
@@ -100,6 +118,7 @@ def sharded_fused_planes(lefts, rights, *, mesh, sides, L: int, groups,
                 run.stagger(kw, parts, len(sides), accumulate=i > 0)
             else:
                 run.lockstep(kw, parts, accumulate=i > 0)
+    run.join(into_ranks=False)  # the volumes are written
     return {k: (k * rl, v) for k, v in vols.items()}, nspaces
 
 
@@ -124,8 +143,8 @@ def _sub_launch(kw: dict, space: int, ns: int):
 
 
 class _Run:
-    """The ranks' inputs and K4's fixed arguments for one sharded
-    solve."""
+    """The ranks' inputs, streams and K4's fixed arguments for one
+    sharded solve."""
 
     def __init__(self, mesh, kernel, *, H, C, rl, block, inputs, common):
         self.mesh, self.kernel = mesh, kernel
@@ -134,6 +153,28 @@ class _Run:
         self.inputs = {k: {name: None if a is None else a.to(mesh.devices[k])
                            for name, a in inputs.items()}
                        for k in mesh.local}
+        # the ranks whose blocks run on each rank's card at once (K4's
+        # plan gives each its share of the card)
+        self.share = {k: sum(mesh.devices[j] == mesh.devices[k]
+                             for j in mesh.local) for k in mesh.local}
+
+    def on(self, k):
+        """The context in which rank k's work is queued: its stream."""
+        s = self.mesh.stream(k)
+        return contextlib.nullcontext() if s is None else torch.cuda.stream(s)
+
+    def join(self, *, into_ranks: bool) -> None:
+        """Order the ranks' streams after the current streams of their
+        cards (into_ranks), or the current streams after the ranks'."""
+        for k in self.mesh.local:
+            s = self.mesh.stream(k)
+            if s is None:
+                continue
+            cur = torch.cuda.current_stream(self.mesh.devices[k])
+            if into_ranks:
+                s.wait_stream(cur)
+            else:
+                cur.wait_stream(s)
 
     def _state(self, k, D, Ml, rows):
         f32 = dict(dtype=torch.float32, device=self.mesh.devices[k])
@@ -158,6 +199,7 @@ class _Run:
         """One A/B launch as its per-space staggered sub-launches."""
         mesh, G = self.mesh, self.G
         n = mesh.size
+        L = self.common["L"]
         T = kw["fstep"] * (self.C - 1) + kw["slope"] * (self.H - 1) + 1
         nb = -(-T // G)
         for space in range(len(kw["planes"]) // ns):
@@ -169,46 +211,64 @@ class _Run:
                 # first space, which every forward launch holds)
                 if any(p[6] for p in planes):
                     raise ValueError("a folded plane without recursions")
-                for o in out.values():
-                    if accumulate:
-                        o.add_(0.0)
-                    else:
-                        o.zero_()
+                for k, o in out.items():
+                    with self.on(k):
+                        if accumulate:
+                            o.add_(0.0)
+                        else:
+                            o.zero_()
                 continue
             rolls = {roll for _, roll in combos} - {0}
             if len(rolls) > 1:
                 raise ValueError(f"an A/B sub-launch reads rows above and "
                                  f"below: rolls {sorted(rolls)}")
             down = rolls != {-1}     # reads the row above: flows down
+            flow = 1 if down else -1
             D = max(lag for lag, _ in combos)
             Ml = len(mspecs)
-            f32 = dict(dtype=torch.float32)
-            state = {k: self._state(k, D, Ml, self.rl) for k in mesh.local}
-            halo = {k: torch.full((2 * G, Ml, self.common["L"]), INF, **f32,
-                                  device=mesh.devices[k]) for k in mesh.local}
-            ship = {k: torch.full((G, Ml, self.common["L"]), INF, **f32,
-                                  device=mesh.devices[k]) for k in mesh.local}
-            live = {k: self._steps(kw, planes, k) for k in mesh.local}
             args = dict(self.common, planes=planes, mspecs=mspecs,
                         combos=combos, slope=kw["slope"], fstep=kw["fstep"],
                         reverse=kw["reverse"], accumulate=accumulate, G=G,
-                        ship_row=self.rl - 1 if down else 0, out_off=0)
+                        nsteps=G, ship_row=self.rl - 1 if down else 0,
+                        out_off=0)
+            halo, ship, step = {}, {}, {}
+            for k in mesh.local:
+                with self.on(k):
+                    hist, mins = self._state(k, D, Ml, self.rl)
+                    f32 = dict(dtype=torch.float32, device=mesh.devices[k])
+                    halo[k] = torch.full((2 * G, Ml, L), INF, **f32)
+                    ship[k] = torch.full((G, Ml, L), INF, **f32)
+                    step[k] = cuda_fused.bind_block(
+                        self.kernel, **self.inputs[k], out=out[k],
+                        hist=hist, mins=mins, r0=k * self.rl,
+                        halo=halo[k], ship=ship[k], share=self.share[k],
+                        **args)
+            live = [self._steps(kw, planes, k) for k in range(n)]
+
+            def block(k, sigma):
+                """Rank k's block at superstep sigma, None where it has
+                no pixel in it."""
+                b = sigma - (k if down else n - 1 - k)
+                s_lo, s_hi = live[k]
+                ok = 0 <= b < nb and b * G <= s_hi and s_lo < (b + 1) * G
+                return b if ok else None
+
             for sigma in range(nb + n - 1):
                 for k in mesh.local:
-                    b = sigma - (k if down else n - 1 - k)
-                    s_lo, s_hi = live[k]
-                    if not (0 <= b < nb and b * G <= s_hi
-                            and s_lo < (b + 1) * G):
-                        continue
-                    self.kernel(**self.inputs[k], out=out[k],
-                                hist=state[k][0], mins=state[k][1],
-                                step0=b * G, nsteps=G, r0=k * self.rl,
-                                halo=halo[k], ship=ship[k], **args)
-                recv = mesh.shift(ship, 1 if down else -1)
+                    b = block(k, sigma)
+                    if b is not None:
+                        with self.on(k):
+                            step[k](b * G)
+                # block b's track into the downstream rank's halo slot
+                # b % 2, which its block b reads next superstep
+                sent = {k: ship[k] if block(k, sigma) is not None else None
+                        for k in mesh.local}
+                into = {}
                 for k in mesh.local:
-                    halo[k][:G].copy_(halo[k][G:])
-                    if recv[k] is not None:
-                        halo[k][G:].copy_(recv[k])
+                    b = block(k - flow, sigma) if 0 <= k - flow < n else None
+                    into[k] = (None if b is None
+                               else halo[k][b % 2 * G:(b % 2 + 1) * G])
+                mesh.shift(sent, flow, into)
 
     def lockstep(self, kw, parts, *, accumulate: bool):
         """One V or parity launch in lockstep blocks over apron-extended
@@ -218,38 +278,33 @@ class _Run:
         rows = self.rl + 2 * B
         D = max(lag for lag, _ in kw["combos"])
         Ml = len(kw["mspecs"])
-        L = self.common["L"]
         T = kw["fstep"] * (self.C - 1) + kw["slope"] * (self.H - 1) + 1
-        state = {k: self._state(k, D, Ml, rows) for k in mesh.local}
         args = dict(self.common, planes=kw["planes"], mspecs=kw["mspecs"],
                     combos=kw["combos"], slope=kw["slope"],
                     fstep=kw["fstep"], reverse=kw["reverse"],
-                    accumulate=accumulate, G=B, out_off=B)
+                    accumulate=accumulate, G=B, nsteps=B, out_off=B)
+        state, step = {}, {}
+        for k in mesh.local:
+            with self.on(k):
+                state[k] = self._state(k, D, Ml, rows)
+                step[k] = cuda_fused.bind_block(
+                    self.kernel, **self.inputs[k], out=parts[k],
+                    hist=state[k][0], mins=state[k][1], r0=k * self.rl - B,
+                    share=self.share[k], **args)
 
-        def band_rows(k, start):
-            """Ring rows start .. start + B - 1 of rank k, hist and
-            minima side by side: (D + 1, Ml, B, L + 1)."""
-            h, m = state[k]
-            return torch.cat([h.narrow(2, start, B),
-                              m.narrow(2, start, B)[..., None]], -1)
+        def ring_rows(start):
+            """Ring rows start .. start + B - 1 of each rank: its hist
+            and minima rows, views into the ring."""
+            return {k: tuple(a.narrow(2, start, B) for a in state[k])
+                    for k in mesh.local}
 
-        def put(k, start, x):
-            h, m = state[k]
-            h.narrow(2, start, B).copy_(x[..., :L])
-            m.narrow(2, start, B).copy_(x[..., L])
-
+        # a band's first and last B rows, and its aprons above and below
+        first, last = ring_rows(B), ring_rows(self.rl)
+        above, below = ring_rows(0), ring_rows(self.rl + B)
         for b in range(-(-T // B)):
             for k in mesh.local:
-                self.kernel(**self.inputs[k], out=parts[k],
-                            hist=state[k][0], mins=state[k][1],
-                            step0=b * B, nsteps=B, r0=k * self.rl - B,
-                            **args)
+                with self.on(k):
+                    step[k](b * B)
             # the aprons' ring rows from the neighbours' band rows
-            up = mesh.shift({k: band_rows(k, B) for k in mesh.local}, -1)
-            down = mesh.shift({k: band_rows(k, self.rl)
-                               for k in mesh.local}, 1)
-            for k in mesh.local:
-                if up[k] is not None:
-                    put(k, self.rl + B, up[k])
-                if down[k] is not None:
-                    put(k, 0, down[k])
+            mesh.shift(first, -1, below)
+            mesh.shift(last, 1, above)

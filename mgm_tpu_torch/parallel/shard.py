@@ -5,22 +5,29 @@ the image rows [k * Rl, (k + 1) * Rl), Rl = ceil(H / n) (the last band
 may be short).  One process drives every rank of a mesh from
 `make_mesh`, as one JAX controller drives every local device; a device
 may repeat, so `make_mesh(devices=["cuda:0"] * 4)` runs four ranks on
-one card and `["cpu"] * 2` two on the CPU.  A mesh from
-`distributed.global_row_mesh` has one rank a process and exchanges
-through torch.distributed.
+one card and `["cpu"] * 2` two on the CPU.  On CUDA devices each rank
+of such a mesh works on a stream of its own (`stream`), so ranks that
+share a card overlap there as they would on cards of their own, and
+the exchanges between them are ordered by CUDA events, never by the
+host.  A mesh from `distributed.global_row_mesh` has one rank a
+process and exchanges through torch.distributed.
 
-The sharded runner (fused_shard.py) sees only two operations, so it
+The sharded runner (fused_shard.py) sees only these operations, so it
 does not know which kind of mesh it runs on:
 
-  shift(tensors, step)   rank k's tensor goes to rank k + step, then
-                         every rank waits for what it receives;
-  gather_rows(bands, H)  every rank's band of an (N, rows, ...) map,
-                         concatenated in rank order.
+  stream(k)                   rank k's CUDA stream, or None (the
+                              current stream);
+  shift(tensors, step, out)   rank k's tensor is copied into rank
+                              k + step's `out`;
+  gather_rows(bands, H)       every rank's band of an (N, rows, ...)
+                              map, concatenated in rank order.
 
 The dense XLA mesh path of mgm_tpu (`sharded_solve`, `solve_tiled`,
 `halo.halo_aggregate`) is not ported yet (ROADMAP item 10a).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -38,6 +45,7 @@ class RowMesh:
         self.local = list(range(len(self.devices)) if local is None
                           else local)
         self.group = group
+        self._streams = {}
 
     @property
     def size(self) -> int:
@@ -64,19 +72,46 @@ class RowMesh:
                              f"row ({rl} rows a rank)")
         return rl
 
-    def shift(self, tensors: dict, step: int) -> dict:
-        """Send each local rank k's tensors[k] to rank k + step (step
-        +-1) and wait: returns {k: the tensor rank k - step sent, or None
-        at the mesh's edge} for the local ranks.  Every rank's tensor has
-        one shape and dtype.  What is received is a fresh tensor."""
+    def stream(self, k: int):
+        """Rank k's CUDA stream (made at first use) when this process
+        drives every rank on CUDA devices, else None: the current stream
+        (CPU ranks; one rank a process, whose exchanges the group's
+        backend orders)."""
+        if self.group is not None or self.devices[k].type != "cuda":
+            return None
+        if k not in self._streams:
+            self._streams[k] = torch.cuda.Stream(self.devices[k])
+        return self._streams[k]
+
+    def shift(self, tensors: dict, step: int, out: dict) -> None:
+        """Copy each local rank k's tensors[k] into out[k + step] (step
+        +-1): a tensor, or a tuple of tensors, of one shape and dtype on
+        every rank.  A None entry sends or receives nothing (the
+        receiver's entry must then be None too, and the other way
+        round); the rank at the mesh's edge receives nothing.  In one
+        process the host never waits: the copy runs on the receiver's
+        stream after the sender's stream has reached it, and the
+        sender's stream goes on only after the copy, so either may
+        overwrite its tensor next."""
         n = self.size
-        if self.group is None:
-            # in one process: a copy onto the receiver's device (on
-            # distinct cards torch orders it after the sender's stream)
-            return {k: (tensors[k - step].to(self.devices[k], copy=True)
-                        if 0 <= k - step < n else None)
-                    for k in self.local}
-        return _p2p_shift(self, tensors, step)
+        if self.group is not None:
+            _p2p_shift(self, tensors, step, out)
+            return
+        waits = []
+        for k in self.local:
+            j = k - step
+            if not 0 <= j < n or out.get(k) is None:
+                continue
+            sj, sk = self.stream(j), self.stream(k)
+            if sk is not None:
+                sk.wait_stream(sj)
+            with _on(sj), _on(sk):
+                for d, s in zip(_parts(out[k]), _parts(tensors[j])):
+                    d.copy_(s, non_blocking=True)
+            if sj is not None:
+                waits.append((sj, sk))
+        for sj, sk in waits:
+            sj.wait_stream(sk)
 
     def gather_rows(self, bands: dict, H: int, dim: int = 1):
         """The (..., H, ...) map from every rank's band of it (rows on
@@ -106,6 +141,17 @@ def make_mesh(n_devices: int | None = None, devices=None) -> RowMesh:
     return RowMesh(devices)
 
 
+def _on(stream):
+    """The context that makes `stream` current (None: nothing)."""
+    return contextlib.nullcontext() if stream is None else torch.cuda.stream(
+        stream)
+
+
+def _parts(x) -> tuple:
+    """A shift's entry as a tuple of tensors."""
+    return x if isinstance(x, tuple) else (x,)
+
+
 def _staged(t: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
     """What goes over the group's backend: gloo's point-to-point and
     collectives take CPU tensors only, so a CUDA tensor goes through
@@ -118,21 +164,35 @@ def _staged(t: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
     return t.contiguous()
 
 
-def _p2p_shift(mesh: RowMesh, tensors: dict, step: int) -> dict:
+def _staged_device(t: torch.Tensor, mesh: RowMesh):
+    """Where _staged puts a copy of t: host memory under gloo."""
+    import torch.distributed as dist
+
+    return "cpu" if dist.get_backend(mesh.group) == "gloo" else t.device
+
+
+def _p2p_shift(mesh: RowMesh, tensors: dict, step: int, out: dict):
     import torch.distributed as dist
 
     n = mesh.size
     (k,) = mesh.local
-    reqs, recv = [], None
-    if 0 <= k + step < n:
-        reqs.append(dist.isend(_staged(tensors[k], mesh), k + step,
-                               group=mesh.group))
-    if 0 <= k - step < n:
-        recv = _staged(torch.empty_like(tensors[k]), mesh)
-        reqs.append(dist.irecv(recv, k - step, group=mesh.group))
+    send = tensors.get(k) if 0 <= k + step < n else None
+    into = out.get(k) if 0 <= k - step < n else None
+    reqs, recv = [], []
+    if send is not None:
+        for t in _parts(send):
+            reqs.append(dist.isend(_staged(t, mesh), k + step,
+                                   group=mesh.group))
+    if into is not None:
+        for t in _parts(into):
+            buf = torch.empty(t.shape, dtype=t.dtype,
+                              device=_staged_device(t, mesh))
+            reqs.append(dist.irecv(buf, k - step, group=mesh.group))
+            recv.append((t, buf))
     for r in reqs:
         r.wait()
-    return {k: None if recv is None else recv.to(mesh.devices[k])}
+    for t, buf in recv:
+        t.copy_(buf)
 
 
 def _all_gather_rows(mesh: RowMesh, bands: dict, H: int, dim: int):

@@ -19,9 +19,10 @@ its fused_block in interpret mode costs minutes of XLA compile a case
 case runs at TSGM 1, where the port and mgm_tpu agree bitwise in every
 key (tests/test_torch_stereo.py).
 
-The `cuda` case holds K4 against its plain version on the card.  This
-file imports mgm_tpu only inside the mgm_tpu case, so the rest runs
-where the card is:
+The `cuda` case holds K4 against its plain version on the card, counts
+one device launch a K4 call, and holds the ranks on their own streams
+against the ranks on one stream.  This file imports mgm_tpu only inside
+the mgm_tpu case, so the rest runs where the card is:
 
     python -m pytest --noconftest -m cuda tests/test_torch_shard.py
 """
@@ -118,7 +119,7 @@ def _sharded_against_unsharded(cfg, u, v, devices, win=None, kernel=None,
 # blocks of 4 steps: aprons of 4 rows inside the 11-row bands, so the
 # lockstep groups refresh them many times (at 32, B is the band's 11
 # rows and an apron reaches the image's edge)
-@pytest.mark.parametrize("block", [BLOCK, 4])
+@pytest.mark.parametrize("block", [32, 4])
 @pytest.mark.parametrize("name", sorted(MECHANISMS))
 def test_sharded_recursion_matches_k1(pair, name, block):
     over, pp = MECHANISMS[name]
@@ -127,16 +128,25 @@ def test_sharded_recursion_matches_k1(pair, name, block):
                                _windows() if pp else None, block=block)
 
 
-# 22 rows over 3 ranks: 8 + 8 + 6; A/B with weights, and every group
-@pytest.mark.parametrize("over", [dict(ndir=4, mgm=3, a_p2=0.5),
-                                  dict(ndir=8, mgm=4)],
-                         ids=["ab_weights", "all_groups"])
-def test_sharded_recursion_ragged_rows(over):
+# 22 rows over 3 ranks: 8 + 8 + 6; A/B with weights, A/B + V, and A/B +
+# PA/PB; blocks of 4 steps: the A/B stagger's two-slot halo ring wraps
+# 6-13 times, and the lockstep groups' 4-row aprons refresh every 4 steps
+AB_WEIGHTS, V_GROUP, ALL_GROUPS = (dict(ndir=4, mgm=3, a_p2=0.5),
+                                  dict(ndir=8, mgm=2), dict(ndir=8, mgm=4))
+
+
+@pytest.mark.parametrize("over,block", [
+    (AB_WEIGHTS, BLOCK), (ALL_GROUPS, BLOCK), (V_GROUP, BLOCK),
+    (AB_WEIGHTS, 4), (V_GROUP, 4), (ALL_GROUPS, 4)],
+    ids=["ab_weights", "all_groups", "v_group", "ab_weights_block4",
+         "v_group_block4", "all_groups_block4"])
+def test_sharded_recursion_ragged_rows(over, block):
     rng = np.random.default_rng(2)
     u = rng.uniform(0, 50, (22, W, 3)).astype(np.float32)
     v = np.roll(u, 2, axis=1)
     cfg = MGMConfig(**BASE, **over)
-    _sharded_against_unsharded(cfg, u, v, [torch.device("cpu")] * 3)
+    _sharded_against_unsharded(cfg, u, v, [torch.device("cpu")] * 3,
+                               block=block)
 
 
 def _assert_same(got, want):
@@ -235,10 +245,14 @@ def cuda():
 
 
 # K4 against its plain version on a 40-row strip over 2 ranks of the
-# card, and K4 sharded against K1 unsharded, for each group
+# card, the ranks on their own streams against the ranks on the one
+# current stream, one device launch a K4 call, and K4 sharded against K1
+# unsharded, for each group
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(MECHANISMS))
-def test_k4_matches_plain_on_the_card(cuda, name):
+def test_k4_matches_plain_on_the_card(cuda, name, monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
     over, pp = MECHANISMS[name]
     cfg = MGMConfig(**BASE, **over)
     rng = np.random.default_rng(4)
@@ -249,11 +263,25 @@ def test_k4_matches_plain_on_the_card(cuda, name):
         win = {k: np.tile(a, (1, 3))[:, :64] for k, a in win.items()}
     lefts, rights, kw = _inputs(cfg, u, v, cuda, win)
     mesh = make_mesh(devices=[cuda] * 2)
-    got, _ = sharded_fused_planes(lefts, rights, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    cuda_fused.fused_block.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got, _ = sharded_fused_planes(lefts, rights, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+    device = sum(1 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "fused_block_cluster" in e.name)
+    assert device == cuda_fused.fused_block.launches > 0
     want, _ = sharded_fused_planes(lefts, rights, mesh=mesh,
                                    kernel=cuda_fused.fused_block_plain,
                                    **kw)
+    one = make_mesh(devices=[cuda] * 2)
+    monkeypatch.setattr(one, "stream", lambda k: None)
+    same, _ = sharded_fused_planes(lefts, rights, mesh=one, **kw)
     torch.cuda.synchronize()
     for k in got:
         assert_bitwise(got[k][1].cpu().numpy(), want[k][1].cpu().numpy())
+        assert_bitwise(got[k][1].cpu().numpy(), same[k][1].cpu().numpy())
     _sharded_against_unsharded(cfg, u, v, [cuda] * 3, win)
+    _sharded_against_unsharded(cfg, u, v, [cuda] * 3, win, block=4)
