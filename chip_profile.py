@@ -11,15 +11,16 @@ synthetic data at 700x500, L = 151:
               K1/K2);
   cfg1_tsgm4  the same at TSGM 4 (K1 in spaces A and PB, K2);
   full_16dir  the same at 16 directions, TSGM 2 (K1 in A/B and V, the
-              knight passes through K8 and K6/K5/K7);
+              knight passes through K8 and K5);
   cfg2        the census_tl preset over -120..30 (census words, FH,
               8 directions, TSGM 3: K1 in A/B and V, K2 with the
               subpixel taps, vfit, median);
   cfg4        the sobelx_tl preset (AD, FH, trunc_dist 63, vfit,
               median);
-  ncc         compute_disparity with the `ncc` preset, LR (dense
-              K6/K5/K7);
+  ncc         compute_disparity with the `ncc` preset, LR (dense K5);
   mgm_o       mrf_cli.main on a protocol file, NDIR 8, MGM 2, VTYPE 0;
+  mgm_o_fh    the same at VTYPE 1 (the truncated-linear potential: K5's
+              weighted FH instance);
   cfg1_mM     cfg1 with full-band constant -m/-M images (per-pixel
               windows in K1, the materialised S assembly instead of K2);
   cfg3_b8     compute_disparity_batch on 8 synthetic satellite pairs
@@ -35,10 +36,15 @@ For each run it prints
   - the host wall time, median of N plain runs;
   - host stage times: the run's stage functions are wrapped with a
     synchronize before and after (one more run, so each stage owns its
-    device work); "rest" is the run's wall minus its stages;
+    device work); "rest" is the run's wall minus its stages; the dense
+    stages are K5 and the pass sum, or in a checkout from before the
+    skew went into K5's addressing (--repo) the canonical copies, K6
+    skew, K5 and K7 unskew;
+  - that run's peak device memory;
   - under torch.profiler over N runs: the device's busy share (the
-    union of kernel and copy intervals over the host wall) and device
-    time by kernel name.
+    union of kernel and copy intervals over the host wall), device time
+    by kernel name, and K1's, K5's, K4's and (before the skew went into
+    K5) K6/K7's device time and launches a run.
 With --out DIR the full tables also go to DIR/profile.json; --rows
 names the runs to make (default: all); --repo DIR profiles the
 mgm_tpu_torch package of another checkout (e.g. the parent commit, to
@@ -73,6 +79,9 @@ K1_KERNELS = ("fused_wavefront_cluster", "sgm_front_kernel", "fh_front_kernel")
 K5_KERNELS = ("wavefront_rows", "scan_front")
 # K4's: the launch a block, or, before its redesign, the front kernel
 K4_KERNELS = ("fused_block_cluster", "band_front")
+# K6's and K7's (the skew copy and its inverse), in a checkout from before
+# they went into K5's addressing
+SKEW_KERNELS = ("shift_rows",)
 
 
 class _Stages:
@@ -209,9 +218,13 @@ def main(argv=None) -> int:
         return make_mesh(devices=["cuda:0"] * 2)
 
     # (name, run, MP*disp per run, stage wraps: (module, attr, label))
-    dense = [(agg, "canonical_inputs", "  canonicalise"),
-             (wf, "skew", "  K6 skew"), (wf, "wavefront_scan", "  K5 scan"),
-             (wf, "unskew", "  K7 unskew")]
+    # the dense stages of this checkout: K5 and the pass sum, or the
+    # canonical copies, K6, K5 and K7 before the skew went into K5
+    dense = [(m, a, n) for m, a, n in (
+        (agg, "canonical_inputs", "  canonicalise"),
+        (wf, "skew", "  K6 skew"), (wf, "wavefront_scan", "  K5 scan"),
+        (wf, "unskew", "  K7 unskew"), (agg, "sum_passes", "  pass sum"))
+        if hasattr(m, a)]
     fused_wta = [(stereo, "_scrub", "upload + scrub"),
                  (stereo, "mgm_solve_fused", "fused solve"),
                  (cuda_fused, "fused_wavefront", "  K1 fused wavefront"),
@@ -295,15 +308,16 @@ def main(argv=None) -> int:
           (cuda_fused, "wta", "  K2 wta + taps"),
           (stereo, "subpixel_refine_taps", "refine"),
           (post, "median_filter", "median")]),
-        ("mgm_o", lambda: mrf_cli.main([f_in, f_out, "8", "32", "2", "0"]),
+    ] + [
+        (name, lambda vt=vt: mrf_cli.main([f_in, f_out, "8", "32", "2", vt]),
          H * W * L,
          [(mrf_cli, "read_problem", "read protocol file"),
           (mrf_cli, "solve_mrf", "solve_mrf"),
           (mrf, "mgm_solve", " mgm_solve"),
           (solver, "aggregate", "  aggregate")]
          + [(m, a, "  " + n) for m, a, n in dense]
-         + [(mrf_cli, "write_labels", "write labels")]),
-    ]
+         + [(mrf_cli, "write_labels", "write labels")])
+        for name, vt in (("mgm_o", "0"), ("mgm_o_fh", "1"))]
     report = {"card": card, "reps": args.reps, "runs": {}}
     for name, fn, work, wraps in runs:
         if args.rows and name not in args.rows:
@@ -315,23 +329,27 @@ def main(argv=None) -> int:
         for mod, attr, label in wraps:
             st.wrap(mod, attr, label)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         staged = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
         st.restore()
         busy, window, pwall, by_name = _device_profile(fn, args.reps)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
         report["runs"][name] = {
             "wall_s": walls, "median_s": med,
             "mp_disp_per_s": work / med / 1e6, "staged_ms": staged,
+            "peak_gib": peak,
             "stages_ms": st.ms, "busy_share_of_wall": busy,
             "device_window_ms": window, "profiled_wall_ms": pwall,
             "kernels": {k: {"ms": v[0] / args.reps, "calls": v[1] / args.reps}
                         for k, v in top}}
         print(f"== {name}: median {med * 1e3:.3f} ms of {args.reps} runs = "
               f"{work / med / 1e6:.1f} MP*disp/s on {card}")
-        print(f"   staged run {staged:.3f} ms:")
+        print(f"   staged run {staged:.3f} ms, peak device memory "
+              f"{peak:.3f} GiB:")
         top_level = sum(ms for k, ms in st.ms.items() if not k[0].isspace())
         for _, _, k in wraps:
             if k in st.ms:
@@ -346,16 +364,20 @@ def main(argv=None) -> int:
         k1_ms, k1_n = device(K1_KERNELS)
         k5_ms, k5_n = device(K5_KERNELS)
         k4_ms, k4_n = device(K4_KERNELS)
+        k67_ms, k67_n = device(SKEW_KERNELS)
         report["runs"][name]["k1_kernels_ms"] = k1_ms
         report["runs"][name]["k1_launches"] = k1_n
         report["runs"][name]["k5_kernels_ms"] = k5_ms
         report["runs"][name]["k5_launches"] = k5_n
         report["runs"][name]["k4_kernels_ms"] = k4_ms
         report["runs"][name]["k4_launches"] = k4_n
+        report["runs"][name]["k6_k7_kernels_ms"] = k67_ms
+        report["runs"][name]["k6_k7_launches"] = k67_n
         report["runs"][name]["block"] = fused_shard.BLOCK
         print(f"   K1's kernels: {k1_ms:.3f} ms of device time a run in "
               f"{k1_n:.0f} launches; K5's: {k5_ms:.3f} ms in {k5_n:.0f} "
-              f"launches; K4's: {k4_ms:.3f} ms in {k4_n:.0f} launches")
+              f"launches; K4's: {k4_ms:.3f} ms in {k4_n:.0f} launches; "
+              f"K6/K7's: {k67_ms:.3f} ms in {k67_n:.0f} launches")
         print(f"   profiler: device busy {busy:.4f} of the host wall "
               f"({pwall / args.reps:.3f} ms a run profiled), device window "
               f"{window / args.reps:.3f} ms a run")

@@ -25,31 +25,36 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     synthetic pair, 700x500, L = 151, both LR sides): bitwise equal, K1
     in each of RACE_RUNS runs (a missing synchronisation shows as a
     race);
- 6. the dense path's kernels K6 (skew), K5 (wavefront scan) and K7
-    (unskew) against their plain versions on a 64-row strip, 700 wide,
-    L = 151, both LR problems: SGM TSGM 2 at slope 1 and 2, weighted FH
-    at TSGM 2 and 3, knight passes (ndir 16, TSGM 4) and FH with
-    per-pixel windows: bitwise equal;
+ 6. the dense path's kernel K5 (wavefront scan, reading and writing
+    image layout through each pass's orientation map: the TPU's skew
+    and unskew absorbed into its addressing) against its plain version
+    (the TPU's pipeline: canonicalise, skew, front loop, unskew,
+    un-canonicalise) on a 64-row strip, 700 wide, L = 151, both LR
+    problems: SGM TSGM 2 at slope 1 and 2, weighted FH at TSGM 2 and 3,
+    knight passes (ndir 16, TSGM 4) and FH with per-pixel windows:
+    bitwise equal;
  7. mgm_o at full width: a 700x500, L = 151 problem with a planted
     labelling (edge weights in {0.25, 1}) written in the mgm_o binary
     protocol, solved by mrf_cli.main (NDIR 8, P1 8, P2 32, MGM 2) for
-    VTYPE 0 and 1 through K5/K6/K7 (launch counters), >= 95 % of the
-    planted labels recovered, a crop equal to its CPU run, and the
-    median wall time in MP*disp/s (H*W*L / s);
+    VTYPE 0 and 1 through K5 (launch counter; one device launch a pass
+    group and no skew or unskew kernel, by torch.profiler), >= 95 % of
+    the planted labels recovered, peak device memory, a crop equal to
+    its CPU run, and the median wall time in MP*disp/s (H*W*L / s);
  8. the `ncc` preset at cfg1 geometry on the synthetic pair, LR both
-    ways, through K5/K6/K7: >= 70 % of pixels survive the LR check and
-    >= 95 % of those lie within 0.5 px of the true disparity; a crop
-    equal to its CPU run; the median wall time in MP*disp/s; then K5's
-    device kernel launches in one run, counted by torch.profiler: one
-    a pass group (4);
- 9. K6, K5 and K7 against their plain versions at the NCC run's
-    largest pass group (the shapes the main path gives them): bitwise
-    equal, K5 in each of RACE_RUNS runs; then each one's time beside
-    its plain version's and one PyTorch library call's, K5's also a
-    front; then K5 against its plain version once at full_16dir's
-    column knight group (8 planes, 700x500, random costs) and at
-    mgm_o's weighted FH group (VTYPE 1: the diagonal column group of
-    the planted problem, 2 planes at slope 2), with its time a front;
+    ways, through K5: >= 70 % of pixels survive the LR check and >= 95 %
+    of those lie within 0.5 px of the true disparity; peak device
+    memory; a crop equal to its CPU run; the median wall time in
+    MP*disp/s; then K5's device kernel launches in one run, counted by
+    torch.profiler: one a pass group (4), and no skew or unskew kernel;
+ 9. K5 against its plain version at the NCC run's largest pass group
+    (the shapes the main path gives it): bitwise equal in each of
+    RACE_RUNS runs; then its time (and a front) beside its plain
+    version's and its bound, and the TPU's skew and unskew in plain
+    PyTorch and as one library copy at that group's shapes; then K5
+    against its plain version once at full_16dir's column knight group
+    (8 planes, 700x500, random costs) and at mgm_o's weighted FH group
+    (VTYPE 1: the diagonal column group of the planted problem, 2
+    planes at slope 2), with its time a front;
 10. K1 and K2 against their plain versions on a 64-row strip, 700
     wide, L = 151, both LR sides, for the V group (ndir 8, TSGM 2,
     slope 0) and the packed-parity group (ndir 8, TSGM 4, PA + PB):
@@ -59,8 +64,9 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     bitwise equal; then its time at full_16dir's two calls beside its
     plain version's;
 12. full_16dir (bench_matrix's row: fast_ad at ndir 16, TSGM 2) end to
-    end as phase 4, through K1 (A/B and V groups), K8 and K6/K5/K7 on
-    the knight passes (launch counters);
+    end as phase 4, through K1 (A/B and V groups), K8 and K5 on the
+    knight passes (launch counters; K5 one device launch a knight group
+    and no skew or unskew kernel, by torch.profiler);
 13. cfg1_tsgm4 (fast_ad at TSGM 4: A and PB groups) end to end as
     phase 4, through K1 and K2;
 14. K1 and K2 against their plain versions at the full shapes of
@@ -154,9 +160,14 @@ and read just after (`launches_by_path`): cfg1 (phase 4), cfg1_tsgm4
 (phase 13), cfg2 and cfg4 (phase 17), cfg1_iter3 (phase 21), cfg3_b8,
 cfg3_b32 (phase 22) and cfg3_scene (phase 23) for K1/K2, cfg1_mM and
 cfg1_mM_truth8 (phase 20) for K1, the two mgm_o runs, the NCC run
-(phases 7-8) and ncc_iter3 (phase 21) for K5/K6/K7, full_16dir (phase
-12) for K1, K5-K8, and the sharded rows (phase 25) for K4 and K2;
-`launches` is their sum.  K4's times and bound are the sharded cfg1
+(phases 7-8) and ncc_iter3 (phase 21) for K5, full_16dir (phase 12) for
+K1, K5 and K8, and the sharded rows (phase 25) for K4 and K2;
+`launches` is their sum.  The entries `skew` and `unskew` (the TPU's K6
+and K7) are absorbed into K5's addressing: no kernel of theirs exists,
+so they launch 0 times on every path K5 runs; their max_abs_err is K5's
+group checks', their `ms`, `bound_ms` and `bound_by` are null (nothing
+runs or moves for them), and `plain_ms` / `library_ms` are the plain
+skew and unskew and one strided copy at the NCC group's shapes.  K4's times and bound are the sharded cfg1
 recursion's over 2 ranks (phase 24).  One K1 call is one cluster launch
 that steps every front of its scan direction inside the kernel; one K4
 call is one launch of the same kernel body on a band that steps a
@@ -200,7 +211,9 @@ DENSE_CASES = (
     ("knight passes ndir 16 TSGM 4", 16, 4, False, False, False, 4),
     ("weighted FH TSGM 3, per-pixel windows", 8, 3, True, True, True, 0),
 )
-DENSE_KERNELS = ("wavefront_scan", "skew", "unskew")
+DENSE_KERNELS = ("wavefront_scan",)
+# the TPU's skew and unskew (K6, K7), absorbed into K5's addressing
+ABSORBED = ("skew", "unskew")
 FUSED_KERNELS = ("fused_wavefront", "wta")
 CENSUS_WORDS = 2                 # phase 11's packed census words a pixel
 NEW_REPS = 3                     # timed runs of phases 20-26
@@ -240,7 +253,7 @@ def _compare(name, got, want):
 
 
 def _same_bits(name, got, want):
-    """K6/K7 copy 32-bit words: every bit equal, NaN payloads too."""
+    """Copies of 32-bit words: every bit equal, NaN payloads too."""
     import torch
 
     if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
@@ -359,30 +372,6 @@ def _event_once(fn):
     return start.elapsed_time(stop), out
 
 
-def _event_ms_fresh(prep, fn, reps: int, warm: bool = True):
-    """(mean device time of fn(prep()) over `reps` runs, timing fn
-    alone, and the last run's result), for a kernel that updates its
-    input in place."""
-    import torch
-
-    if warm:
-        fn(prep())
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    total, out = 0.0, None
-    for _ in range(reps):
-        x = prep()
-        del out
-        torch.cuda.synchronize()
-        start.record()
-        out = fn(x)
-        stop.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(stop)
-        del x
-    return total / reps, out
-
-
 def _device_launches(fn, name: str) -> int:
     """The device kernels whose name holds `name` that one fn() run
     launches, by torch.profiler."""
@@ -397,6 +386,19 @@ def _device_launches(fn, name: str) -> int:
     return sum(1 for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and name in e.name)
+
+
+def _dense_device(phase, tag, fn, calls: int, groups: int) -> None:
+    """One run of a dense path, fn, under torch.profiler: K5 one device
+    launch a pass group (`calls` wrapper calls in the counted run, the
+    path's `groups` pass groups)."""
+    k5 = _device_launches(fn, K5_KERNEL)
+    print(f"[{phase}] {tag}: K5's device kernel launches in one run "
+          f"(torch.profiler) {k5} (one a pass group: {calls} wrapper calls,"
+          f" {groups} groups)", flush=True)
+    if not k5 == calls == groups:
+        raise AssertionError(f"{tag}: K5 launched {k5} device kernels in "
+                             f"{calls} calls for {groups} pass groups")
 
 
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -427,7 +429,6 @@ def _kernels() -> dict:
     return {"fused_wavefront": cuda_fused.fused_wavefront,
             "wta": cuda_fused.wta, "fused_block": cuda_fused.fused_block,
             "wavefront_scan": wf.wavefront_scan,
-            "skew": wf.skew, "unskew": wf.unskew,
             "pointwise_volume": cuda_cost.pointwise_volume}
 
 
@@ -519,9 +520,9 @@ def _stereo_path(phase, tag, cfg, pair, names, card, reps, tol=0.0,
 
 
 def _dense_strip(case, rng, dev):
-    """Phase 6, one case: K6, K5, K7 against their plain versions on the
-    same inputs; returns max abs errors per kernel and the case's
-    slope."""
+    """Phase 6, one case: K5 against its plain version on the same
+    image-layout inputs; returns K5's max abs error and the case's
+    plan."""
     import torch
     from mgm_tpu_torch.ops import aggregate as agg
     from mgm_tpu_torch.ops import wavefront as wf
@@ -541,26 +542,30 @@ def _dense_strip(case, rng, dev):
                   1.0).astype(np.float32)
     pids = agg._pass_groups(ndir, mgm)[pick]
     plan = agg.group_plan(pids, STRIP, W, mgm)
-    canon = agg.canonical_inputs(
-        plan, *(torch.from_numpy(a).to(dev) for a in (cc, w8, lo, hi)),
-        use_weights=wts, fh_restrict=restrict)
-    got = agg.skewed_inputs(canon, plan.slope)
-    want = agg.skewed_inputs(canon, plan.slope, skew=wf.skew_plain)
-    errs = {n: 0.0 for n in DENSE_KERNELS}
-    for i, (g, w_) in enumerate(zip(got, want)):
-        if w_ is not None:
-            errs["skew"] = max(errs["skew"], _same_bits(f"K6 [{what}] {i}",
-                                                        g, w_))
+    inputs = tuple(torch.from_numpy(a).to(dev) for a in (cc, w8, lo, hi))
     kw = agg.scan_kwargs(plan, p1=8.0 * 3, p2=32.0 * 3, mgm=mgm, use_fh=fh,
                          use_weights=wts, fh_restrict=restrict)
-    vol = wf.wavefront_scan(got[0].clone(), *got[1:], **kw)
-    ref = wf.wavefront_scan_plain(got[0].clone(), *got[1:], **kw)
+    out = wf.wavefront_scan(*inputs, **kw)
+    ref = wf.wavefront_scan_plain(*inputs, **kw)
     torch.cuda.synchronize()
-    errs["wavefront_scan"] = _compare(f"K5 [{what}]", vol, ref)
-    errs["unskew"] = _same_bits(f"K7 [{what}]",
-                                wf.unskew(vol, plan.C, plan.slope),
-                                wf.unskew_plain(vol, plan.C, plan.slope))
-    return errs, plan
+    return _compare(f"K5 [{what}]", out, ref), plan
+
+
+def _dense_path_device(phase, tag, cfg, pair, got):
+    """_dense_device for a stereo row through K5 on `pair` (its dense
+    passes: every pass of an NCC run a solve, the fused
+    solve's leftovers otherwise)."""
+    from mgm_tpu_torch import compute_disparity
+    from mgm_tpu_torch.ops import aggregate as agg
+    from mgm_tpu_torch.ops import fused
+
+    u, v = pair[:2]
+    pids = (None if cfg.distance == "ncc"
+            else fused.split_passes(cfg.ndir, cfg.mgm)[1])
+    groups = len(agg._pass_groups(cfg.ndir, cfg.mgm, pids)) * (
+        cfg.iterations if cfg.distance == "ncc" else 1)
+    _dense_device(phase, tag, lambda: compute_disparity(
+        u, v, cfg, device="cuda"), got["wavefront_scan"], groups)
 
 
 def _fused_check(phase, cases, errs, u, v, runs=1):
@@ -1051,7 +1056,7 @@ def main(argv=None) -> int:
     print((lib.parent / "build.log").read_text().strip(), flush=True)
 
     # ---- 2./3. K1 and K2 against their plain versions ----------------
-    errs = {n: 0.0 for n in _kernels()}
+    errs = {n: 0.0 for n in tuple(_kernels()) + ABSORBED}
     strip = synthetic_pair(STRIP, W, DMIN, DMAX, seed=1)[:2]
     _fused_check("2-3", (("cfg1", _fast_ad(), None),
                          ("fast_ad", _fast_ad(ndir=2, mgm=4), None)),
@@ -1102,11 +1107,12 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(6)
     for case in DENSE_CASES:
         e, plan = _dense_strip(case, rng, torch.device("cuda"))
-        for n in DENSE_KERNELS:
-            errs[n] = max(errs.get(n, 0.0), e[n])
-        print(f"[6] K6, K5, K7 == plain at {STRIP}x{W}, L={L}, 2 problems, "
-              f"{case[0]} (passes {plan.R}x{plan.C} canonical, slope "
-              f"{plan.slope}): {TOL}, max abs err {e}", flush=True)
+        errs["wavefront_scan"] = max(errs["wavefront_scan"], e)
+        print(f"[6] K5 == plain (canonicalise, skew, fronts, unskew, "
+              f"un-canonicalise) at {STRIP}x{W}, L={L}, 2 problems, "
+              f"{case[0]} ({len(plan.specs)} passes {plan.R}x{plan.C} "
+              f"canonical, slope {plan.slope}): {TOL}, max abs err {e}",
+              flush=True)
     torch.cuda.empty_cache()
 
     # ---- 7. mgm_o at full width ---------------------------------------
@@ -1125,8 +1131,8 @@ def main(argv=None) -> int:
             if min(got.values()) < 1:
                 raise AssertionError(f"mgm_o VTYPE {vtype} bypassed a "
                                      f"kernel: {got}")
-            for n in DENSE_KERNELS:
-                by_path[n][f"mgm_o_vtype{vtype}"] = got[n]
+            tag = f"mgm_o_vtype{vtype}"
+            by_path["wavefront_scan"][tag] = got["wavefront_scan"]
             lab = np.fromfile(f_out, np.float32)
             if lab.shape != (H * W,) or not np.isfinite(lab).all():
                 raise AssertionError(f"mgm_o labels: {lab.shape}")
@@ -1142,6 +1148,9 @@ def main(argv=None) -> int:
                   flush=True)
             if rec < 0.95:
                 raise AssertionError("mgm_o recovery below threshold")
+            _dense_device("7", f"mgm_o VTYPE {vtype}",
+                          lambda: mrf_cli.main(argv), got["wavefront_scan"],
+                          len(agg._pass_groups(8, 2)))
             cu, cw = unary[:64, :96], w8[:64, :96]
             a = solve_mrf(cu, 8, 8.0, 32.0, 2, vtype, cw, device="cuda")
             b = solve_mrf(cu, 8, 8.0, 32.0, 2, vtype, cw, device="cpu")
@@ -1159,8 +1168,7 @@ def main(argv=None) -> int:
     got = _counts(DENSE_KERNELS)
     if min(got.values()) < 1:
         raise AssertionError(f"NCC bypassed a kernel: {got}")
-    for n in DENSE_KERNELS:
-        by_path[n]["ncc"] = got[n]
+    by_path["wavefront_scan"]["ncc"] = got["wavefront_scan"]
     disp = out["disp"]
     if disp.shape != (H, W) or out["cost"].shape != (H, W):
         raise AssertionError(f"NCC output shapes {disp.shape}")
@@ -1189,17 +1197,11 @@ def main(argv=None) -> int:
                  torch.from_numpy(small_cpu[k]))
     print(f"[8] ncc on a {small_cpu['disp'].shape} crop: CUDA == CPU plain "
           f"for every output ({TOL})", flush=True)
-    k5_dev = _device_launches(lambda: compute_disparity(u, v, ncc,
-                                                        device="cuda"),
-                              K5_KERNEL)
-    print(f"[8] K5's device kernel launches in one ncc run (torch.profiler):"
-          f" {k5_dev} (one a pass group: {got['wavefront_scan']} wrapper "
-          f"calls)", flush=True)
-    if k5_dev != got["wavefront_scan"]:
-        raise AssertionError(f"K5 launched {k5_dev} device kernels in "
-                             f"{got['wavefront_scan']} calls")
+    _dense_device("8", "ncc", lambda: compute_disparity(
+        u, v, ncc, device="cuda"), got["wavefront_scan"],
+        len(agg._pass_groups(ncc.ndir, ncc.mgm)))
 
-    # ---- 9. dense kernel timing at the largest NCC pass group ---------
+    # ---- 9. K5 at the largest NCC pass group ---------------------------
     dev = torch.device("cuda")
     ut, vt = (torch.from_numpy(a).to(dev).float() for a in (u, v))
     lo = torch.zeros((H, W), dtype=torch.int32, device=dev)
@@ -1211,111 +1213,101 @@ def main(argv=None) -> int:
                                         distance="ncc", L=L,
                                         trunc_dist=ncc.trunc_dist,
                                         ncc_win=ncc.census_ncc_win)])
+    del ut, vt
     groups = agg._pass_groups(ncc.ndir, ncc.mgm)
     plans = [agg.group_plan(g, H, W, ncc.mgm) for g in groups]
     big = max(range(len(plans)), key=lambda i: plans[i].R * (
         plans[i].C + plans[i].slope * (plans[i].R - 1)))
     plan = plans[big]
-    x = agg.canonical_inputs(plan, cc, None, None, None, use_weights=False,
-                             fh_restrict=False)[0]
-    del cc
     s = plan.slope
-    A, R, C, Lx = x.shape
+    R, C = plan.R, plan.C
+    A = len(plan.specs) * cc.shape[0]
+    T = C + s * (R - 1)
     kw = agg.scan_kwargs(plan, p1=ncc.p1 * 3, p2=ncc.p2 * 3, mgm=ncc.mgm,
                          use_fh=False, use_weights=False, fh_restrict=False)
-    inf = float("inf")
-    # each kernel against its plain version on the same inputs, at the
-    # shapes the NCC run gives it, then timed
-    where = f"at the NCC run's largest group ({A}x{R}x{C}, L={Lx})"
-    sk = wf.skew(x, inf, s)
-    T = sk.shape[2]
-    e9 = {"skew": _same_bits(f"K6 {where}", sk, wf.skew_plain(x, inf, s))}
-    ms["skew"] = _event_ms(lambda: wf.skew(x, inf, s), 5)
-    plain_ms["skew"] = _event_ms(lambda: wf.skew_plain(x, inf, s), 2)
-    lib_out = torch.full_like(sk, inf)
-    view = lib_out.as_strided((A, R, C, Lx), (R * T * Lx, (T + s) * Lx, Lx, 1))
-    library_ms["skew"] = _event_ms(lambda: view.copy_(x), 5)
-    if not torch.equal(lib_out, sk):
-        raise AssertionError("K6's library yardstick computes another "
-                             "function")
-    del lib_out, view
-    plain_ms["wavefront_scan"], ref = _event_ms_fresh(
-        sk.clone, lambda y: wf.wavefront_scan_plain(y, **kw), 1, warm=False)
-    e9["wavefront_scan"] = 0.0
+    # K5 against its plain version on the same inputs, at the shapes the
+    # NCC run gives it, then timed
+    where = f"at the NCC run's largest group ({A}x{R}x{C}, L={L})"
+    plain_ms["wavefront_scan"], ref = _event_once(
+        lambda: wf.wavefront_scan_plain(cc, **kw))
+    e9 = 0.0
     for run in range(RACE_RUNS):   # a missing wait shows as a race
-        got = wf.wavefront_scan(sk.clone(), **kw)
-        e9["wavefront_scan"] = max(e9["wavefront_scan"], _compare(
-            f"K5 {where}, run {run}", got, ref))
+        got = wf.wavefront_scan(cc, **kw)
+        e9 = max(e9, _compare(f"K5 {where}, run {run}", got, ref))
         del got
     del ref
-    ms["wavefront_scan"], agg_sk = _event_ms_fresh(
-        sk.clone, lambda y: wf.wavefront_scan(y, **kw), 3)
+    errs["wavefront_scan"] = max(errs["wavefront_scan"], e9)
+    ms["wavefront_scan"] = _event_ms(lambda: wf.wavefront_scan(cc, **kw), 3)
     library_ms["wavefront_scan"] = None
-    del sk
-    e9["unskew"] = _same_bits(f"K7 {where}", wf.unskew(agg_sk, C, s),
-                              wf.unskew_plain(agg_sk, C, s))
-    ms["unskew"] = _event_ms(lambda: wf.unskew(agg_sk, C, s), 5)
-    plain_ms["unskew"] = _event_ms(lambda: wf.unskew_plain(agg_sk, C, s), 2)
-    lib_out = torch.empty_like(x)
-    view = agg_sk.as_strided((A, R, C, Lx), (R * T * Lx, (T + s) * Lx, Lx, 1))
-    library_ms["unskew"] = _event_ms(lambda: lib_out.copy_(view), 5)
-    if not torch.equal(lib_out, wf.unskew(agg_sk, C, s)):
-        raise AssertionError("K7's library yardstick computes another "
-                             "function")
-    del lib_out, view, agg_sk
-    print(f"[9] K6, K5, K7 == plain {where}: {TOL}, K5 in each of "
-          f"{RACE_RUNS} runs, max abs err {e9}", flush=True)
-    for n in DENSE_KERNELS:
-        errs[n] = max(errs[n], e9[n])
-    xb, skb = x.numel() * 4, A * R * T * Lx * 4
-    cells = A * R * C * Lx
-    bounds["skew"] = _bound(xb + skb, 0)
-    bounds["unskew"] = _bound(2 * xb, 0)
-    # K5 touches only the real cells (0 <= t - slope*r < C): one read and
-    # one write of them plus the minima it writes per cell; the skew's
-    # fill is never read.  Per real cell: 2 messages of ~8 operations,
+    print(f"[9] K5 == plain {where}: {TOL} in each of {RACE_RUNS} runs, max "
+          f"abs err {e9}", flush=True)
+    cells = A * R * C * L
+    # one read of each pass's costs and one write of its output, plus the
+    # minima it writes a pixel.  Per cell: 2 messages of ~8 operations,
     # the halving sum, the add and the minimum
-    bounds["wavefront_scan"] = _bound(2 * xb + A * R * C * 4, cells * 20)
-    for n in DENSE_KERNELS:
-        print(f"[9] {n}: {ms[n]:.3f} ms, plain {plain_ms[n]:.3f} ms, library "
-              f"{library_ms[n]} ms, bound {bounds[n][0]:.3f} ms "
-              f"({bounds[n][1]}) at the NCC run's largest group: {A} planes,"
-              f" {R}x{C} canonical, slope {s}, {T} fronts, L={Lx} on {card}",
-              flush=True)
+    bounds["wavefront_scan"] = _bound(2 * cells * 4 + A * R * C * 4,
+                                      cells * 20)
+    # the TPU's skew and unskew, absorbed: their plain versions and one
+    # library copy each at this group's shapes, on its canonical costs
+    x = wf.canonical_plain(cc, wf._pixels(plan.maps, R, C, dev), R, C)
+    del cc
+    inf = float("inf")
+    sk = wf.skew_plain(x, inf, s)
+    plain_ms["skew"] = _event_ms(lambda: wf.skew_plain(x, inf, s), 2)
+    lib_out = torch.full_like(sk, inf)
+    view = lib_out.as_strided((A, R, C, L), (R * T * L, (T + s) * L, L, 1))
+    library_ms["skew"] = _event_ms(lambda: view.copy_(x), 5)
+    _same_bits("the skew's library copy", lib_out, sk)
+    del lib_out, view
+    plain_ms["unskew"] = _event_ms(lambda: wf.unskew_plain(sk, C, s), 2)
+    lib_out = torch.empty_like(x)
+    view = sk.as_strided((A, R, C, L), (R * T * L, (T + s) * L, L, 1))
+    library_ms["unskew"] = _event_ms(lambda: lib_out.copy_(view), 5)
+    _same_bits("the unskew's library copy", lib_out, x)
+    del lib_out, view, sk, x
+    for n in ABSORBED:   # nothing runs or moves for them on any path
+        ms[n], bounds[n] = None, (None, None)
+    print(f"[9] wavefront_scan: {ms['wavefront_scan']:.3f} ms, plain "
+          f"{plain_ms['wavefront_scan']:.3f} ms, bound "
+          f"{bounds['wavefront_scan'][0]:.3f} ms "
+          f"({bounds['wavefront_scan'][1]})", flush=True)
+    for n in ABSORBED:
+        print(f"[9] {n} (absorbed into K5): plain {plain_ms[n]:.3f} ms, "
+              f"library {library_ms[n]:.3f} ms", flush=True)
+    print(f"[9] at the NCC run's largest group: {A} planes, {R}x{C} "
+          f"canonical, slope {s}, {T} fronts, L={L} on {card}", flush=True)
     print(f"[9] K5: {ms['wavefront_scan'] / T * 1e3:.3f} us a front at the "
-          f"NCC run's largest group ({T} fronts) on {card}", flush=True)
-    del x
+          f"NCC run's largest group ({T} fronts; 2.233 before the skew went "
+          f"into its addressing) on {card}", flush=True)
+    torch.cuda.empty_cache()
     # K5 at full_16dir's column knight group (random costs, both sides)
     # and at mgm_o's weighted FH group (VTYPE 1, the planted problem)
     unary, w8, _ = synthetic_mrf(H, W, L, seed=0)
-    for what, ndir, fh, N, ccv, w8v in (
-            ("full_16dir's column knight group", 16, False, 2,
+    for what, ndir, fh, ccv, w8v in (
+            ("full_16dir's column knight group", 16, False,
              torch.from_numpy(np.random.default_rng(9).uniform(
                  0, 50, (2, H, W, L)).astype(np.float32)).to(dev), None),
-            ("mgm_o's weighted FH group (VTYPE 1)", 8, True, 1,
+            ("mgm_o's weighted FH group (VTYPE 1)", 8, True,
              torch.from_numpy(unary).to(dev)[None],
              torch.from_numpy(w8).to(dev)[None])):
         pids = [g for g in agg._pass_groups(ndir, 2)
                 if agg.group_plan(g, H, W, 2).R == W][-1]
         plan = agg.group_plan(pids, H, W, 2)
-        sk_in = agg.skewed_inputs(agg.canonical_inputs(
-            plan, ccv, w8v, None, None, use_weights=fh, fh_restrict=False),
-            plan.slope)
-        del ccv
         kw = agg.scan_kwargs(plan, p1=8.0 if fh else 24.0,
                              p2=32.0 if fh else 96.0, mgm=2, use_fh=fh,
                              use_weights=fh, fh_restrict=False)
-        ref = wf.wavefront_scan_plain(sk_in[0].clone(), *sk_in[1:], **kw)
-        kms, got = _event_ms_fresh(sk_in[0].clone, lambda y: wf.wavefront_scan(
-            y, *sk_in[1:], **kw), 1)
+        ref = wf.wavefront_scan_plain(ccv, w8v, **kw)
+        got = wf.wavefront_scan(ccv, w8v, **kw)
         e = _compare(f"K5 at {what}", got, ref)
+        kms = _event_ms(lambda: wf.wavefront_scan(ccv, w8v, **kw), 1)
         errs["wavefront_scan"] = max(errs["wavefront_scan"], e)
-        Tk = sk_in[0].shape[2]
-        print(f"[9] K5 == plain at {what}: {tuple(sk_in[0].shape)} skewed "
+        Tk = plan.C + plan.slope * (plan.R - 1)
+        print(f"[9] K5 == plain at {what}: {len(plan.specs)} passes x "
+              f"{ccv.shape[0]} images of {plan.R}x{plan.C} canonical "
               f"(knight {plan.knight}, slope {plan.slope}): {TOL}, max abs "
               f"err {e}; {kms:.3f} ms = {kms / Tk * 1e3:.3f} us a front on "
               f"{card}", flush=True)
-        del sk_in, ref, got
+        del ccv, w8v, ref, got
         torch.cuda.empty_cache()
     del unary, w8
 
@@ -1378,6 +1370,8 @@ def main(argv=None) -> int:
         got = _stereo_path(phase, tag, rcfg, pair, names, card, REPS)
         for n in got:
             by_path[n][tag] = got[n]
+        if "wavefront_scan" in got:
+            _dense_path_device(phase, tag, rcfg, pair, got)
         torch.cuda.empty_cache()
 
     # ---- 14. K1 and K2 at the new rows' full shapes; K1 per front ---
@@ -1519,6 +1513,8 @@ def main(argv=None) -> int:
                            tol=tol, L_=L_it)
         for n in got:
             by_path[n][tag] = got[n]
+        if "wavefront_scan" in got:
+            _dense_path_device("21", tag, rcfg, pair, got)
         torch.cuda.empty_cache()
     import contextlib
     import io
@@ -1744,6 +1740,11 @@ def main(argv=None) -> int:
               "group were not measured", flush=True)
     del ref1
 
+    # the absorbed kernels no longer exist: 0 launches wherever K5 runs;
+    # K5's group checks hold their work
+    for n in ABSORBED:
+        by_path[n] = {tag: 0 for tag in by_path["wavefront_scan"]}
+        errs[n] = errs["wavefront_scan"]
     launches = {n: sum(c.values()) for n, c in by_path.items()}
     print(f"[27] smoke run took {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -1756,9 +1757,9 @@ def main(argv=None) -> int:
                            "mgm_tpu/ops/pallas_fused.py:375"),
            "wavefront_scan": ("mgm_tpu_torch/csrc/wavefront.cu",
                               "mgm_tpu/ops/pallas_wavefront.py:224"),
-           "skew": ("mgm_tpu_torch/csrc/skew.cu",
+           "skew": ("mgm_tpu_torch/csrc/wavefront.cu",
                     "mgm_tpu/ops/pallas_wavefront.py:43"),
-           "unskew": ("mgm_tpu_torch/csrc/skew.cu",
+           "unskew": ("mgm_tpu_torch/csrc/wavefront.cu",
                       "mgm_tpu/ops/pallas_wavefront.py:93"),
            "pointwise_volume": ("mgm_tpu_torch/csrc/cost.cu",
                                 "mgm_tpu/ops/pallas_cost.py:31")}
@@ -1767,7 +1768,9 @@ def main(argv=None) -> int:
          "replaces": src[n][1], "launches": launches[n],
          "launches_by_path": by_path[n], "max_abs_err": errs[n],
          "ms": ms[n], "plain_ms": plain_ms[n], "bound_ms": bounds[n][0],
-         "bound_by": bounds[n][1], "library_ms": library_ms[n]}
+         "bound_by": bounds[n][1], "library_ms": library_ms[n],
+         **({"absorbed_into": "mgm_tpu_torch/csrc/wavefront.cu"}
+            if n in ABSORBED else {})}
         for n in src]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

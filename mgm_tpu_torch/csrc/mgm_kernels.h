@@ -97,15 +97,24 @@ struct BandParams {
 };
 
 #define MGM_MAX_OFFS 5
+#define MGM_MAX_PASSES 4
 
-// Dense MGM recursion over one skewed canonical pass group (K5).
+// Dense MGM recursion over one canonical pass group (K5), read from and
+// written to image layout: plane m = b * N + n is pass b of image n, and
+// its canonical pixel (r, c) is image pixel
+// pix = n * H * W + origin[b] + r * dr[b] + c * dc[b] (signed strides in
+// pixels: ops/aggregate.pass_map).
 struct ScanParams {
-  float* vol;          // (M, R, T, L) skewed costs in, aggregated out
-  float* mins;         // (M, R, C) minimum over labels of each real cell
-  const float* w;      // (noffs * M, R, T) weights per offset rank, or 0
-  const int* lo;       // (M, R, T) FH label windows, or 0
+  const float* cc;     // (N, H, W, L) costs at pix * L
+  float* out;          // (B, N, H, W, L) each pass's aggregated volume, at
+                       // (b * N * H * W + pix) * L
+  float* mins;         // (M, R, C) minimum over labels of each pixel
+  const float* w8;     // (N, H, W, 8) edge weights at pix * 8 + channel,
+                       // or 0
+  const int* lo;       // (N, H, W) FH label windows at pix, or 0
   const int* hi;
-  int M, R, T, C, L;
+  int B, N, H, W;      // passes, images and the image's size
+  int M, R, C, L;      // M = B * N planes of R x C canonical pixels
   int slope, mgm, knight, use_fh, use_weights, fh_restrict;
   float p1, p2;
   // offset rank k (offsets in ascending id order): front lag and
@@ -113,6 +122,10 @@ struct ScanParams {
   int noffs;
   int off_lag[MGM_MAX_OFFS], off_shift[MGM_MAX_OFFS];
   int dir_rank[MGM_MAX_RANKS];
+  // pass b's orientation map, and its weight channel (w8's last axis)
+  // of each offset rank
+  int origin[MGM_MAX_PASSES], dr[MGM_MAX_PASSES], dc[MGM_MAX_PASSES];
+  int wch[MGM_MAX_PASSES][MGM_MAX_OFFS];
 };
 
 // K5's launch plan (ops/wavefront.k5_plan): `ctas` CTAs of `warps` warps,

@@ -1,10 +1,12 @@
-// K5: the dense MGM recursion over a skewed canonical pass group, in one
-// launch.
+// K5: the dense MGM recursion over a canonical pass group, read from and
+// written to image layout, in one launch.
 //
 // Replaces the TPU kernel mgm_tpu/ops/pallas_wavefront.py:_kernel (its
-// front update _front_update, :177; launched by wavefront_scan, :328).
-// It computes the same thing: for every front t of the skewed volume
-// (row r holds canonical pixel (r, t - slope*r)), each pixel's 1-4
+// front update _front_update, :177; launched by wavefront_scan, :328),
+// and absorbs the TPU's layout kernels _skew_kernel (skew_p, :79) and
+// _unskew_kernel (unskew_p, :107).  It computes the same thing: for
+// every front t of the pass's canonical scan (front t holds canonical
+// pixel (r, t - slope*r) of each row r), each pixel's 1-4
 // coupled messages from the causal offsets W / N / NW / NE / WWN, SGM
 // or truncated-linear (FH, by log2(L) min-plus doubling steps), with
 // optional per-offset weights and the FH label-window restriction, the
@@ -13,9 +15,17 @@
 // front that later fronts read.
 //
 // What is not carried over is the TPU's blocking: the G-front VMEM
-// blocks and the D-deep history scratch.  The volume is updated in
-// place, so the history is the volume itself (plus the (M, R, C)
-// minima): front t reads fronts t - lag, which are final by then.
+// blocks, the D-deep history scratch, and the skewed volume that made
+// each front one block to copy in (with the copies into canonical
+// orientation before it and back after it).  Here the skew and the
+// orientation are address arithmetic: plane m = b*N + n (pass b of image
+// n) reads its canonical pixel (r, c) at image pixel n*H*W + origin[b] +
+// r*dr[b] + c*dc[b] of the costs (N, H, W, L), weights (N, H, W, 8) and
+// windows (N, H, W), and writes it at the same pixel of pass b's output
+// (out (B, N, H, W, L)): every pixel, a border pixel with its cost.  A
+// row's next column lies dc*L floats on.  The history is that output
+// itself (plus the (M, R, C) minima): front t reads fronts t - lag,
+// which are final by then.
 //
 // Design.  Pixel (r, c) reads its own row's column c - 1 (W) and row
 // r - 1's columns c + slope - lag (N, NW, NE, WWN; every lag >= 1), so a
@@ -39,11 +49,15 @@
 // columns in shared memory, each word a value with its column's count
 // in one 64-bit access, so the reader waits only until the words it
 // reads carry the count it wants; the writer reuses a slot once the
-// reader's count (shared memory) is past it.  The row's own costs,
-// weights and windows are loaded a column ahead into registers and
-// prefetched into L2 four ahead.  Only a band's first row reads the row
-// above from the volume: that row's warp, in another CTA, publishes its
-// count of finished columns every K5_PUB columns to a global array,
+// reader's count (shared memory) is past it.  The row's own costs are
+// loaded a column ahead into registers and prefetched into L2 four
+// ahead; its weights and windows NL columns at a time, a pixel a lane,
+// each column taking its own by a shuffle (in a column-major pass a
+// pixel's next column lies W pixels on: one strided load a column cost
+// the weighted SGM instance 14-16 % at mgm_o on the H100, the batch
+// 7 %).  Only a band's first row reads the row above from the output:
+// that row's warp, in another CTA, publishes its count of finished
+// columns every K5_PUB columns to a global array,
 // one slot a CTA, tagged with the launch's epoch (release / acquire at
 // GPU scope, the rows read from L2, ld.global.cg, the next column's
 // loaded ahead where the count covers it).  On the H100 a column still
@@ -62,10 +76,9 @@
 //
 // Bound: the chain of dependent row-fronts, about R * slope + C of them
 // (a row starts slope columns behind the row above), each the latency of
-// one warp's messages and minimum; the bytes are one read and one write
-// of the volume's real cells (0 <= t - slope*r < C) and their minima,
-// the skew's fill never read or written (interior pixels only are
-// written back: a border pixel keeps its cost).
+// one warp's messages and minimum; the bytes are one read of each pass's
+// costs and one write of its output and of the minima (no skewed volume
+// and no fill exist).
 //
 // Instances: FH, weights (W), and the labels a lane K with the lanes a
 // row NL (labels_a_lane: (16, 3), (32, 2), (32, 5), (32, 6), (32, 32))
@@ -138,19 +151,16 @@ __global__ void __launch_bounds__(k5_max_threads(K))
   // capture them: a reference to a parameter would move it to the stack)
   bool up[MGM_MAX_RANKS];
   int dcol[MGM_MAX_RANKS];
-  size_t woff[MGM_MAX_RANKS];  // its weight plane: rank * M * R * T
   int ahead = -C;
   bool any_up = false;
 #pragma unroll
   for (int j = 0; j < MGM_MAX_RANKS; ++j) {
     up[j] = false;
     dcol[j] = 0;
-    woff[j] = 0;
     if (j < mgm) {
       const int k = p.dir_rank[j];
       up[j] = p.off_shift[k] != 0;
       dcol[j] = p.slope - p.off_lag[k];
-      woff[j] = (size_t)k * p.M * p.R * p.T;
       if (up[j]) {
         any_up = true;
         ahead = dcol[j] > ahead ? dcol[j] : ahead;
@@ -162,10 +172,11 @@ __global__ void __launch_bounds__(k5_max_threads(K))
   const bool halve = mgm == 2 && !FH && !W;
   const bool restrict_in = FH && p.fh_restrict;
   const float p1 = p.p1, p2 = p.p2;
-  const float* const wts = p.w;
+  const float* const wts = p.w8;
   const int* const lo_c = p.lo;
   const int* const hi_c = p.hi;
-  const int R = p.R, T = p.T, slope = p.slope;
+  const int R = p.R;
+  const long long HW = (long long)p.H * p.W;
   // the 1-pixel border; knight passes reach 2 columns left and have no
   // +x offset
   const int c0 = p.knight ? 2 : 1, c1 = p.knight ? C - 1 : C - 2;
@@ -185,15 +196,27 @@ __global__ void __launch_bounds__(k5_max_threads(K))
     if (r >= R) break;  // this CTA's later bands lie no higher
     int m = g * RW + h;
     // a segment past the last plane computes plane M - 1's row and
-    // stores nothing to the volume
+    // stores nothing to the output
     const bool mine = m < p.M;
     if (!mine) m = p.M - 1;
+    // plane m is pass ps of image img: its canonical pixel (r, i) is
+    // image pixel pix0 + i * dc (ops/aggregate.pass_map), its costs at
+    // that pixel of cc, its output at that pixel of pass ps's volume
+    const int ps = m / p.N, img = m - ps * p.N;
+    const int dc = p.dc[ps];
+    const long long pix0 = img * HW + p.origin[ps] + (long long)r * p.dr[ps];
+    const long long step = (long long)dc * L;  // floats to the next column
+    const float* const crow = p.cc + pix0 * L;
+    float* const vrow = p.out + ((long long)ps * p.N * HW + pix0) * L;
     const size_t rc = (size_t)m * R + r;
-    const size_t cell0 = rc * T + (size_t)slope * r;  // column 0's cell
-    float* const vrow = p.vol + cell0 * L;
     float* const mrow = p.mins + rc * C;
-    const float* const vup = r ? p.vol + (cell0 - T - slope) * L : nullptr;
+    const float* const vup = r ? vrow - (long long)p.dr[ps] * L : nullptr;
     const float* const mup = r ? p.mins + (rc - 1) * C : nullptr;
+    // each coupled dir's weight channel in w8, 3 bits a dir (one register)
+    unsigned wc = 0;
+#pragma unroll
+    for (int j = 0; j < MGM_MAX_RANKS; ++j)
+      if (W && j < mgm) wc |= (unsigned)p.wch[ps][p.dir_rank[j]] << (3 * j);
     // the row below is the next warp's: it reads this row from the ring
     const bool feed = wj + 1 < WC && r + 1 < R;
     int below = 0;  // the next warp's count, as last read
@@ -220,32 +243,56 @@ __global__ void __launch_bounds__(k5_max_threads(K))
       }
     };
 
-    // the inputs of a column that no other row writes: the row's costs,
-    // each dep's weight, the label window
-    float cc[K], ccn[K], dw[MGM_MAX_RANKS], dwn[MGM_MAX_RANKS];
-    int lo = 0, hi = 0, lon = 0, hin = 0;
+    // the inputs of a column that no other row writes: the row's costs
+    // (a column ahead), each dep's weight, the label window
+    float cc[K], ccn[K], dw[MGM_MAX_RANKS];
+    int lo = 0, hi = 0;
     auto load_in = [&](int i) {
-      const float* const src = vrow + (size_t)i * L;
+      const float* const src = crow + i * step;
 #pragma unroll
       for (int s = 0; s < K; ++s) {
         const int l = s * NL + sl;
         ccn[s] = INFINITY;
         if ((K <= 6 || s < nk) && l < L) ccn[s] = src[l];
       }
-      if constexpr (W) {
+    };
+    // the weights and the window come NL columns at a time, one pixel a
+    // lane: lane sl of the segment loads column c0 + sl's (and prefetches
+    // the next NL columns' into L2), and column i takes its own from the
+    // segment's lane i mod NL by a shuffle.  A pixel's weights and window
+    // lie W pixels apart from the next column's in a column-major pass:
+    // one load a segment in place of a strided load a column.
+    float wb[MGM_MAX_RANKS];
+    int lob = 0, hib = 0;
 #pragma unroll
-        for (int j = 0; j < MGM_MAX_RANKS; ++j)
-          if (j < mgm) dwn[j] = wts[woff[j] + cell0 + i];
+    for (int j = 0; j < MGM_MAX_RANKS; ++j) wb[j] = 1.f;
+    auto load_side = [&](int c0) {
+      const int c = c0 + sl;
+      const long long px = pix0 + (long long)c * dc;
+      if (c < C) {
+        if constexpr (W) {
+#pragma unroll
+          for (int j = 0; j < MGM_MAX_RANKS; ++j)
+            if (j < mgm) wb[j] = wts[px * 8 + ((wc >> (3 * j)) & 7u)];
+        }
+        if (restrict_in) {
+          lob = lo_c[px];
+          hib = hi_c[px];
+        }
       }
-      if (restrict_in) {
-        lon = lo_c[cell0 + i];
-        hin = hi_c[cell0 + i];
+      if (c + NL < C) {
+        const long long pn = px + (long long)NL * dc;
+        if (W) asm volatile("prefetch.global.L2 [%0];" ::"l"(wts + pn * 8));
+        if (restrict_in) {
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(lo_c + pn));
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(hi_c + pn));
+        }
       }
     };
     // the rows above that column i reads (+inf beyond the image's
-    // columns, as the skew's fill) and their minima: from the warp
+    // columns, as the TPU's skew fill) and their minima: from the warp
     // above's ring, waiting until its words carry their column's count,
-    // or from another CTA's row in the volume
+    // or from another CTA's row in the output
     float v[MGM_MAX_RANKS][K], mk[MGM_MAX_RANKS];
     float vn[MGM_MAX_RANKS][K], mkn[MGM_MAX_RANKS];
     auto load_up = [&](int i, float (&dst)[MGM_MAX_RANKS][K],
@@ -280,7 +327,7 @@ __global__ void __launch_bounds__(k5_max_threads(K))
             __nanosleep(32);
           }
         } else {
-          const float* const src = vup + (size_t)col * L;
+          const float* const src = vup + col * step;
           dm[j] = __ldcg(mup + col);
 #pragma unroll
           for (int s = 0; s < K; ++s) {
@@ -299,24 +346,29 @@ __global__ void __launch_bounds__(k5_max_threads(K))
     bool have = false;  // vn holds this column's rows above
     int pc = 0;         // columns since the last global count
     for (int i = 0; i < C; ++i) {
-      // this column's inputs, loaded a column ahead, then the next's
+      // this column's costs, loaded a column ahead, then the next's
 #pragma unroll
       for (int s = 0; s < K; ++s) cc[s] = ccn[s];
-#pragma unroll
-      for (int j = 0; j < MGM_MAX_RANKS; ++j) dw[j] = dwn[j];
-      lo = lon;
-      hi = hin;
       if (i + 1 < C) load_in(i + 1);
       if (i + 4 < C) {  // and into L2 three columns further
-        const float* const q = vrow + (size_t)(i + 4) * L;
+        const float* const q = crow + (i + 4) * step;
         for (int o = lane * 32; o < L; o += 32 * 32)
           asm volatile("prefetch.global.L2 [%0];" ::"l"(q + o));
+      }
+      // this column's weights and window from the segment's lanes
+      if ((W || restrict_in) && (i & (NL - 1)) == 0) load_side(i);
+#pragma unroll
+      for (int j = 0; j < MGM_MAX_RANKS; ++j)
+        if (W && j < mgm) dw[j] = __shfl_sync(FULL_MASK, wb[j], i, NL);
+      if (restrict_in) {
+        lo = __shfl_sync(FULL_MASK, lob, i, NL);
+        hi = __shfl_sync(FULL_MASK, hib, i, NL);
       }
       float nv[K];
 #pragma unroll
       for (int s = 0; s < K; ++s) nv[s] = cc[s];
       // border pixels keep their cost (the select of the plain version,
-      // never a multiply by a mask): nothing to read or write back
+      // never a multiply by a mask): nothing to read above
       if (interior(r, i)) {
         if (have) {
 #pragma unroll
@@ -383,18 +435,24 @@ __global__ void __launch_bounds__(k5_max_threads(K))
           if (j < mgm)
             fold_message<FH, K, NL>(v[j], mk[j], p1w[j], p2w[j], j, halve,
                                     nk, sl, acc);
-        float* const dst = vrow + (size_t)i * L;
 #pragma unroll
         for (int s = 0; s < K; ++s) {
           if (K > 6 && s >= nk) break;
           float a = acc[s];
           if (mgm > 1 && !halve) a = a / (float)mgm;
           nv[s] = cc[s] + a;
-          const int l = s * NL + sl;
-          if (mine && l < L) dst[l] = nv[s];
         }
       } else {
         have = false;
+      }
+      if (mine) {  // every pixel of the output, a border pixel its cost
+        float* const dst = vrow + i * step;
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          if (K > 6 && s >= nk) break;
+          const int l = s * NL + sl;
+          if (l < L) dst[l] = nv[s];
+        }
       }
       float mv = INFINITY;
 #pragma unroll
@@ -425,7 +483,7 @@ __global__ void __launch_bounds__(k5_max_threads(K))
       if (lane == 0) *(volatile int*)(done + wj) = base + i + 1;
       if (wj + 1 == WC && r + 1 < R && (++pc == K5_PUB || i + 1 == C)) {
         // the next band's first row, in another CTA, reads this one from
-        // the volume
+        // the output
         pc = 0;
         __syncwarp();  // every lane's writes precede the count
         if (lane == 0)
@@ -456,13 +514,28 @@ static K5Kernel pick_k(int L) {
 // The instance for the launch's parameters, after checking them against
 // the kernel's limits (nullptr: outside them).
 static K5Kernel k5_instance(const ScanParams& p) {
+  const long long HW = (long long)p.H * p.W;
   if (p.L < 1 || p.L > MGM_MAX_LABELS || p.mgm < 1 ||
       p.mgm > MGM_MAX_RANKS || p.noffs < 1 || p.noffs > MGM_MAX_OFFS ||
-      p.slope < 1 || p.M < 1 || p.R < 1 || p.C < 1 ||
-      p.T != p.C + p.slope * (p.R - 1) || p.vol == nullptr ||
-      p.mins == nullptr || (p.use_weights && p.w == nullptr) ||
+      p.slope < 1 || p.B < 1 || p.B > MGM_MAX_PASSES || p.N < 1 ||
+      p.M != p.B * p.N || p.R < 1 || p.C < 1 ||
+      (long long)p.R * p.C != HW || p.cc == nullptr || p.out == nullptr ||
+      p.mins == nullptr || (p.use_weights && p.w8 == nullptr) ||
       (p.use_fh && p.fh_restrict && (p.lo == nullptr || p.hi == nullptr)))
     return nullptr;
+  // each pass's map: every corner of its canonical pixels in the image
+  // (the map is linear, so every pixel is), weight channels in w8
+  for (int b = 0; b < p.B; ++b) {
+    for (int cr = 0; cr < 4; ++cr) {
+      const long long x = p.origin[b] +
+                          (long long)(cr & 1) * (p.R - 1) * p.dr[b] +
+                          (long long)(cr >> 1) * (p.C - 1) * p.dc[b];
+      if (x < 0 || x >= HW) return nullptr;
+    }
+    for (int k = 0; k < p.noffs; ++k)
+      if (p.use_weights && (p.wch[b][k] < 0 || p.wch[b][k] > 7))
+        return nullptr;
+  }
   for (int j = 0; j < p.mgm; ++j) {
     const int k = p.dir_rank[j];
     // the W message comes from the previous column's registers

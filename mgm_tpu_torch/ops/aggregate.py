@@ -1,18 +1,22 @@
 """MGM directional aggregation on dense volumes (counterpart of
 mgm_tpu/ops/aggregate.py).
 
-After flipping/transposing each pass into its canonical scan
-orientation, every pass has causal neighbours inside {W, N, NW, NE} of
-scan space (plus WWN for the 22.5-degree knight passes), so one
+In its canonical scan orientation (the image flipped and transposed as
+the pass says) every pass has causal neighbours inside {W, N, NW, NE}
+of scan space (plus WWN for the 22.5-degree knight passes), so one
 canonical wavefront kernel serves all 16 directions, and the passes of
 a group (and the left/right problems) are batched into one scan.
 
-This is the JAX module's accelerator path (`_run_group_pallas`): each
-homogeneous pass group is canonicalised with tensor ops, skewed (K6),
-scanned (K5), unskewed (K7), mapped back and summed.  The TPU's VMEM
-chunking (`pick_block`, the HBM cap) is not ported: a group runs as one
-scan.  The kernels and their plain versions live in ops/wavefront.py,
-with the SGM and FH messages.
+This is the JAX module's accelerator path (`_run_group_pallas`), with
+its layout work absorbed into K5's addressing: K5 reads each pass's
+costs, weights and label windows from the image-layout tensors through
+the pass's orientation map (`pass_map`: canonical pixel (r, c) is image
+pixel origin + r*dr + c*dc) and writes each pass's aggregated volume in
+image orientation, so no canonical, skewed or unskewed copy is made
+(the TPU's K6 skew and K7 unskew have no launch of their own); the
+passes are then summed.  The TPU's VMEM chunking (`pick_block`, the HBM
+cap) is not ported: a group runs as one scan.  The kernel and its plain
+version live in ops/wavefront.py, with the SGM and FH messages.
 
 Dense semantics: +inf outside a pixel's label window reproduces the
 Dvec out-of-range convention (dvec.cc:129) exactly, including the
@@ -26,7 +30,6 @@ from dataclasses import dataclass
 import torch
 
 from . import wavefront as wf
-from .common import INF
 
 
 @dataclass(frozen=True)
@@ -74,6 +77,8 @@ KNIGHT_DIR2OFF = (4, 1, 2, 0)   # dir k -> offset index, knight passes
 
 
 def to_canonical(a, spec: PassSpec, h_axis: int, w_axis: int):
+    """The pass's canonical scan orientation of `a` (the definition that
+    pass_map encodes; the tests hold the map to it)."""
     if spec.flip_x:
         a = torch.flip(a, (w_axis,))
     if spec.flip_y:
@@ -84,6 +89,7 @@ def to_canonical(a, spec: PassSpec, h_axis: int, w_axis: int):
 
 
 def from_canonical(a, spec: PassSpec, h_axis: int, w_axis: int):
+    """The inverse of to_canonical."""
     if not spec.row_major:
         a = a.transpose(h_axis, w_axis)
     if spec.flip_y:
@@ -91,6 +97,17 @@ def from_canonical(a, spec: PassSpec, h_axis: int, w_axis: int):
     if spec.flip_x:
         a = torch.flip(a, (w_axis,))
     return a
+
+
+def pass_map(spec: PassSpec, H: int, W: int) -> tuple[int, int, int]:
+    """(origin, dr, dc): canonical pixel (r, c) of the pass is image
+    pixel y*W + x = origin + r*dr + c*dc of an H x W image, the
+    addressing of to_canonical (row-major passes step columns by +-1 and
+    rows by +-W, column-major passes the other way round; a flip starts
+    at the far edge and steps back)."""
+    y0, sy = (H - 1, -W) if spec.flip_y else (0, W)
+    x0, sx = (W - 1, -1) if spec.flip_x else (0, 1)
+    return (y0 * W + x0,) + ((sy, sx) if spec.row_major else (sx, sy))
 
 
 def _dir2off(spec: PassSpec):
@@ -124,6 +141,8 @@ class GroupPlan:
     dir2off: tuple      # offset id per coupled dir
     offs: tuple         # active offset ids, ascending (the ranks)
     knight: bool
+    maps: tuple         # pass_map of each pass
+    wch: tuple          # each pass's weight channel of each offset rank
 
 
 def group_plan(pids, H: int, W: int, mgm: int) -> GroupPlan:
@@ -133,78 +152,41 @@ def group_plan(pids, H: int, W: int, mgm: int) -> GroupPlan:
     R, C = (H, W) if specs[0].row_major else (W, H)
     # slope-1 wavefronts whenever NE (same-front on slope 1) is inactive
     slope = 2 if 3 in offs else 1
-    return GroupPlan(specs, R, C, slope, d2o, offs, specs[0].knight)
-
-
-def canonical_inputs(plan: GroupPlan, cc, w8, lo, hi, *, use_weights,
-                     fh_restrict):
-    """The group's canonical, pass-stacked inputs for K6:
-    cc (B*N, R, C, L); weights (n_off*B*N, R, C, 1), offset-rank outer
-    (or None); lo/hi (B*N, R, C, 1) int32 (or None)."""
-    specs = plan.specs
-    N = cc.shape[0]
-    R, C = plan.R, plan.C
-    cc_c = torch.stack([to_canonical(cc, s, 1, 2) for s in specs])
-    cc_c = cc_c.reshape(len(specs) * N, R, C, cc.shape[-1])
-    w_c = lo_c = hi_c = None
-    if use_weights:
-        wmaps = []
-        for s in specs:
-            # channel per offset rank: offset o is dir k with d2o[k] == o
-            chs = [s.wch[plan.dir2off.index(o)] for o in plan.offs]
-            wmaps.append(torch.stack([to_canonical(w8[..., c], s, 1, 2)
-                                      for c in chs]))   # (n_off, N, R, C)
-        w_c = torch.stack(wmaps, 1).reshape(-1, R, C, 1)
-    if fh_restrict:
-        lo_c = torch.stack([to_canonical(lo, s, 1, 2) for s in specs])
-        hi_c = torch.stack([to_canonical(hi, s, 1, 2) for s in specs])
-        lo_c = lo_c.reshape(-1, R, C, 1).to(torch.int32)
-        hi_c = hi_c.reshape(-1, R, C, 1).to(torch.int32)
-    return cc_c.contiguous(), w_c, lo_c, hi_c
-
-
-# skew fill of the canonical inputs: costs, weights, lo, hi (an empty
-# window outside the image, aggregate.py:450-458 of the JAX module)
-FILLS = (INF, 1.0, 0, -1)
-
-
-def skewed_inputs(canon, slope: int, skew=None):
-    """canonical_inputs' tensors through `skew` (K6 when None; tests and
-    the smoke run pass its plain version); None stays None."""
-    skew = skew or wf.skew
-    return tuple(None if x is None else skew(x, fill, slope)
-                 for x, fill in zip(canon, FILLS))
+    # offset o couples dir k with d2o[k] == o: its weight is the pass's
+    # channel of that dir
+    wch = tuple(tuple(s.wch[d2o.index(o)] for o in offs) for s in specs)
+    return GroupPlan(specs, R, C, slope, d2o, offs, specs[0].knight,
+                     tuple(pass_map(s, H, W) for s in specs), wch)
 
 
 def scan_kwargs(plan: GroupPlan, *, p1, p2, mgm, use_fh, use_weights,
                 fh_restrict) -> dict:
     """K5's keyword arguments for the group."""
-    return dict(C=plan.C, p1=p1, p2=p2, mgm=mgm, dir2off=plan.dir2off,
-                slope=plan.slope, knight=plan.knight, use_fh=use_fh,
-                use_weights=use_weights, fh_restrict=fh_restrict)
+    return dict(R=plan.R, C=plan.C, maps=plan.maps, wch=plan.wch, p1=p1,
+                p2=p2, mgm=mgm, dir2off=plan.dir2off, slope=plan.slope,
+                knight=plan.knight, use_fh=use_fh, use_weights=use_weights,
+                fh_restrict=fh_restrict)
+
+
+def sum_passes(out):
+    """out[0] + out[1] + ... left to right: a group's passes summed in
+    the order of the JAX module's pass loop."""
+    acc = out[0]
+    for b in range(1, out.shape[0]):
+        acc = acc + out[b]
+    return acc
 
 
 def _run_group(pids, cc, w8, lo, hi, *, p1, p2, mgm, use_fh, use_weights,
                fh_restrict):
-    """One homogeneous pass group through K6 -> K5 -> K7 (the JAX
-    _run_group_pallas, aggregate.py:390-470).  cc: (N, H, W, L); returns
-    the sum over the group's passes of their aggregated volumes."""
-    N, H, W, L = cc.shape
-    plan = group_plan(pids, H, W, mgm)
-    lr_sk, w_sk, lo_sk, hi_sk = skewed_inputs(
-        canonical_inputs(plan, cc, w8, lo, hi, use_weights=use_weights,
-                         fh_restrict=fh_restrict), plan.slope)
-    wf.wavefront_scan(lr_sk, w_sk, lo_sk, hi_sk, **scan_kwargs(
+    """One homogeneous pass group through K5 (the JAX _run_group_pallas,
+    aggregate.py:390-470) on the image-layout inputs.  cc: (N, H, W, L);
+    returns the sum over the group's passes of their aggregated
+    volumes."""
+    plan = group_plan(pids, cc.shape[1], cc.shape[2], mgm)
+    return sum_passes(wf.wavefront_scan(cc, w8, lo, hi, **scan_kwargs(
         plan, p1=p1, p2=p2, mgm=mgm, use_fh=use_fh, use_weights=use_weights,
-        fh_restrict=fh_restrict))
-    del w_sk, lo_sk, hi_sk
-    lr = wf.unskew(lr_sk, plan.C, plan.slope)
-    del lr_sk
-    lr = lr.reshape(len(pids), N, plan.R, plan.C, L)
-    out = from_canonical(lr[0], plan.specs[0], 1, 2)
-    for b in range(1, len(pids)):
-        out = out + from_canonical(lr[b], plan.specs[b], 1, 2)
-    return out
+        fh_restrict=fh_restrict)))
 
 
 def aggregate(cc, w8=None, lo=None, hi=None, *, p1: float, p2: float,
@@ -230,6 +212,13 @@ def aggregate(cc, w8=None, lo=None, hi=None, *, p1: float, p2: float,
         # the MGM==2 unweighted FH path uses the boundary-fixed full-axis
         # min-conv instead of the window-restricted one (mgm_core.cc:208)
         fh_restrict = not ((mgm == 2) and (not use_weights))
+    # K5 reads contiguous image-layout inputs: one copy here when the
+    # caller's layout differs (mrf_cli's label-major unary), not one a
+    # pass
+    cc = cc.contiguous()
+    w8 = w8.contiguous() if use_weights else None
+    if fh_restrict:
+        lo, hi = (x.to(torch.int32).contiguous() for x in (lo, hi))
     out = None
     for gp in _pass_groups(ndir, mgm, pids):
         part = _run_group(gp, cc, w8, lo, hi, p1=p1, p2=p2, mgm=mgm,

@@ -20,7 +20,7 @@ in the order A, B, V, PA, PB.  With constant windows and no leftover
 passes K2 sums the spaces and takes the WTA (and the subpixel taps).
 Otherwise the sum is materialised: with leftover passes (ndir > 8) the
 knight passes run dense (K8 builds the cost volumes, `aggregate` runs
-K6 -> K5 -> K7), and the S assembly, WTA and taps are tensor code.
+K5 on them), and the S assembly, WTA and taps are tensor code.
 The TPU's K3 (`pallas_fused.unskew_planes`) has no counterpart: K1
 already stores the image layout, so the assembled sum has nothing to
 unskew.

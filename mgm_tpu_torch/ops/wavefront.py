@@ -1,35 +1,31 @@
-"""The dense path's three kernels (counterpart of
-mgm_tpu/ops/pallas_wavefront.py).
+"""The dense path's kernel (counterpart of mgm_tpu/ops/pallas_wavefront.py).
 
-For each kernel this module holds the ctypes binding, the wrapper, the
-plain PyTorch version and a launch counter:
+K5 `wavefront_scan` (csrc/wavefront.cu) replaces pallas_wavefront._kernel:
+the MGM recursion over one canonical pass group, SGM or FH, weighted or
+not, knight or not.  This module holds its ctypes binding, the wrapper,
+the plain PyTorch version and a launch counter.
 
-  K5 `wavefront_scan` (csrc/wavefront.cu) replaces
-     pallas_wavefront._kernel: the MGM recursion over one skewed
-     canonical pass group, SGM or FH, weighted or not, knight or not.
-  K6 `skew` (csrc/skew.cu) replaces pallas_wavefront._skew_kernel:
-     out[a, r, slope*r + c, b] = x[a, r, c, b], fill elsewhere.
-  K7 `unskew` (csrc/skew.cu) replaces pallas_wavefront._unskew_kernel,
-     the inverse of K6.
+The TPU's layout kernels _skew_kernel (skew_p) and _unskew_kernel
+(unskew_p) have no launch here: K5 reads each pass's costs, weights and
+label windows from the image-layout tensors and writes each pass's
+aggregated volume in image orientation, through the pass's orientation
+map (aggregate.pass_map), so the canonicalisation and the skew are its
+address arithmetic.  Their plain versions `skew_plain` (out[a, r,
+slope*r + c, b] = x[a, r, c, b], fill elsewhere) and `unskew_plain` (its
+inverse) remain: K5's plain version runs the TPU's pipeline through
+them.
 
 A wrapper runs the plain version only because its tensors lie on the
 CPU; on CUDA tensors it launches the kernel or raises.  `launches`
 counts the calls that launched the kernel (never plain runs); one K5
 call is one device launch that steps every front of the group inside
 the kernel, its size from `k5_plan`.
-
-The skewed volumes have T = C + slope*(R-1) fronts: the TPU's row
-rounding (Rp), store margin and front blocking (t_round, G) are gone.
-K5 updates its volume in place (the JAX kernel returns a new array):
-the skewed volume is a temporary of the pass group, and the in-place
-update saves a second copy of it, up to 3.2 GB at cfg1 geometry.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
 import functools
-import struct
 
 import torch
 
@@ -37,12 +33,12 @@ from . import _build
 from .common import INF, fmin3, shift_fill
 
 # the limits of csrc/mgm_kernels.h
-MAX_LABELS, MAX_OFFS, MAX_RANKS = 1024, 5, 4
+MAX_LABELS, MAX_OFFS, MAX_RANKS, MAX_PASSES = 1024, 5, 4, 4
 
 # per skew slope: canonical offset id -> (front lag, needs row shift).
 # Slope 2 holds for every pass; slope 1 is valid whenever the NE offset
 # (same-front on slope 1) is inactive — axis passes with mgm <= 3 and
-# all knight passes — and shrinks the skewed volume by ~30%.
+# all knight passes — and shortens the chain of fronts by ~30%.
 OFF_LAG = {
     2: {0: (1, False), 1: (2, True), 2: (3, True), 3: (1, True),
         4: (4, True)},
@@ -52,15 +48,19 @@ OFF_LAG = {
 
 class _ScanParams(ctypes.Structure):
     _fields_ = (
-        [(f, ctypes.c_void_p) for f in ("vol", "mins", "w", "lo", "hi")]
-        + [(f, ctypes.c_int) for f in ("M", "R", "T", "C", "L", "slope",
-                                       "mgm", "knight", "use_fh",
-                                       "use_weights", "fh_restrict")]
+        [(f, ctypes.c_void_p) for f in ("cc", "out", "mins", "w8", "lo",
+                                        "hi")]
+        + [(f, ctypes.c_int) for f in ("B", "N", "H", "W", "M", "R", "C",
+                                       "L", "slope", "mgm", "knight",
+                                       "use_fh", "use_weights",
+                                       "fh_restrict")]
         + [(f, ctypes.c_float) for f in ("p1", "p2")]
         + [("noffs", ctypes.c_int),
            ("off_lag", ctypes.c_int * MAX_OFFS),
            ("off_shift", ctypes.c_int * MAX_OFFS),
-           ("dir_rank", ctypes.c_int * MAX_RANKS)])
+           ("dir_rank", ctypes.c_int * MAX_RANKS)]
+        + [(f, ctypes.c_int * MAX_PASSES) for f in ("origin", "dr", "dc")]
+        + [("wch", (ctypes.c_int * MAX_OFFS) * MAX_PASSES)])
 
 
 class _K5Plan(ctypes.Structure):
@@ -94,10 +94,6 @@ def _lib() -> ctypes.CDLL:
             raise RuntimeError(f"{size_name}: the C struct is {size()} "
                                f"bytes, the ctypes mirror "
                                f"{ctypes.sizeof(st)}")
-    lib.mgm_skew.argtypes = ([ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_longlong] + [ctypes.c_int] * 5
-                             + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
-    lib.mgm_skew.restype = ctypes.c_int
     return lib
 
 
@@ -137,10 +133,12 @@ def _check(name, t, shape, dtypes, device) -> None:
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-# ------------------------------------------------------------ K6 / K7 ----
+# ------------------------------------------- the TPU's skew, in plain ----
 
 def skew_plain(x: torch.Tensor, fill, slope: int) -> torch.Tensor:
-    """Plain PyTorch version of K6: (A, R, C, B) -> (A, R, T, B)."""
+    """The TPU's skew (pallas_wavefront._skew_kernel) in plain PyTorch:
+    (A, R, C, B) -> (A, R, T, B), T = C + slope*(R-1),
+    out[a, r, slope*r + c, b] = x[a, r, c, b] and `fill` elsewhere."""
     A, R, C, B = x.shape
     T = C + slope * (R - 1)
     out = torch.full((A, R, T, B), fill, dtype=x.dtype, device=x.device)
@@ -150,74 +148,11 @@ def skew_plain(x: torch.Tensor, fill, slope: int) -> torch.Tensor:
 
 
 def unskew_plain(y: torch.Tensor, C: int, slope: int) -> torch.Tensor:
-    """Plain PyTorch version of K7: (A, R, T, B) -> (A, R, C, B)."""
+    """The inverse of skew_plain (pallas_wavefront._unskew_kernel):
+    (A, R, T, B) -> (A, R, C, B)."""
     R = y.shape[1]
     return torch.stack([y[:, r, slope * r:slope * r + C] for r in range(R)],
                        1)
-
-
-def _fill_bits(fill, dtype) -> int:
-    """The 32-bit pattern of `fill` in `dtype`."""
-    if dtype == torch.float32:
-        return struct.unpack("<I", struct.pack("<f", float(fill)))[0]
-    return int(fill) & 0xFFFFFFFF
-
-
-def _copy(name, src, dst, *, R, C, T, B, slope, fill, inverse) -> None:
-    err = _lib().mgm_skew(src.data_ptr(), dst.data_ptr(), src.shape[0], R,
-                          C, T, B, slope, fill, int(inverse),
-                          _stream(src.device))
-    if err:
-        raise RuntimeError(f"{name}: CUDA error {err}")
-
-
-def skew(x: torch.Tensor, fill, slope: int) -> torch.Tensor:
-    """K6: out[a, r, slope*r + c, b] = x[a, r, c, b], `fill` elsewhere;
-    (A, R, C, B) float32 or int32 -> (A, R, C + slope*(R-1), B).  CPU
-    tensors take the plain version; CUDA tensors launch csrc/skew.cu."""
-    dev = x.device
-    if dev.type == "cpu":
-        return skew_plain(x, fill, slope)
-    if dev.type != "cuda":
-        raise ValueError(f"skew: unsupported device {dev}")
-    if x.ndim != 4:
-        raise ValueError(f"skew: want (A, R, C, B), got {tuple(x.shape)}")
-    A, R, C, B = x.shape
-    _check("skew x", x, (A, R, C, B), (torch.float32, torch.int32), dev)
-    T = C + slope * (R - 1)
-    out = torch.empty((A, R, T, B), dtype=x.dtype, device=dev)
-    _copy("skew", x, out, R=R, C=C, T=T, B=B, slope=slope,
-          fill=_fill_bits(fill, x.dtype), inverse=False)
-    skew.launches += 1
-    return out
-
-
-skew.launches = 0
-
-
-def unskew(y: torch.Tensor, C: int, slope: int) -> torch.Tensor:
-    """K7: the inverse of K6, (A, R, T, B) -> (A, R, C, B).  CPU tensors
-    take the plain version; CUDA tensors launch csrc/skew.cu."""
-    dev = y.device
-    if dev.type == "cpu":
-        return unskew_plain(y, C, slope)
-    if dev.type != "cuda":
-        raise ValueError(f"unskew: unsupported device {dev}")
-    if y.ndim != 4:
-        raise ValueError(f"unskew: want (A, R, T, B), got {tuple(y.shape)}")
-    A, R, T, B = y.shape
-    if T != C + slope * (R - 1):
-        raise ValueError(f"unskew: {T} fronts, want C + slope*(R-1) = "
-                         f"{C + slope * (R - 1)}")
-    _check("unskew y", y, (A, R, T, B), (torch.float32, torch.int32), dev)
-    out = torch.empty((A, R, C, B), dtype=y.dtype, device=dev)
-    _copy("unskew", y, out, R=R, C=C, T=T, B=B, slope=slope, fill=0,
-          inverse=True)
-    unskew.launches += 1
-    return out
-
-
-unskew.launches = 0
 
 
 # ---------------------------------------------------------------- K5 ----
@@ -249,13 +184,14 @@ def _fh_msg(Lk, mk, p1w, p2w, win):
     return M - mk
 
 
-def wavefront_scan_plain(vol, w_sk=None, lo_sk=None, hi_sk=None, *, C, p1,
-                         p2, mgm, dir2off, slope, knight=False, use_fh=False,
-                         use_weights=False, fh_restrict=False):
-    """Plain PyTorch version of K5: a loop over fronts with tensor ops
-    over (M, R, L), in _front_update's order of operations
-    (pallas_wavefront.py:177-221).  Arguments as in wavefront_scan;
-    updates `vol` in place and returns it."""
+def _scan_fronts(vol, w_sk, lo_sk, hi_sk, *, C, p1, p2, mgm, dir2off,
+                 slope, knight, use_fh, use_weights, fh_restrict):
+    """The TPU kernel's front loop over a skewed canonical pass group,
+    with tensor ops over (M, R, L), in _front_update's order of
+    operations (pallas_wavefront.py:177-221).  vol: (M, R, T, L) skewed
+    costs, updated in place into the aggregated volume; w_sk: (n_off*M,
+    R, T, 1) weights per offset rank when use_weights; lo_sk/hi_sk: (M,
+    R, T, 1) int32 label windows when fh_restrict."""
     M, R, T, L = vol.shape
     dev = vol.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -366,60 +302,154 @@ def k5_plan(M: int, R: int, C: int, slope: int, L: int, sms: int,
 _FITS: dict = {}
 
 
-def wavefront_scan(vol, w_sk=None, lo_sk=None, hi_sk=None, *, C, p1, p2,
+def _check_maps(maps, wch, R, C, H, W, noffs) -> None:
+    """Each pass's map must be a bijection of its R x C canonical pixels
+    onto the H x W image (aggregate.pass_map's strides, every corner
+    inside), with a weight channel for each offset rank."""
+    if not 1 <= len(maps) <= MAX_PASSES or len(wch) != len(maps) or (
+            H * W >= 1 << 31):
+        raise ValueError(f"wavefront_scan: {len(maps)} pass maps, "
+                         f"{len(wch)} weight tables, {H}x{W} pixels")
+    for (o, dr, dc), ch in zip(maps, wch):
+        corners = [o + i * (R - 1) * dr + j * (C - 1) * dc
+                   for i in (0, 1) for j in (0, 1)]
+        if ((R, C, abs(dr), abs(dc)) not in ((H, W, W, 1), (W, H, 1, W))
+                or not all(0 <= x < H * W for x in corners)
+                or len(ch) != noffs or not all(0 <= k < 8 for k in ch)):
+            raise ValueError(f"wavefront_scan: pass map {(o, dr, dc)} "
+                             f"(weight channels {ch}) is no orientation of "
+                             f"{R}x{C} canonical pixels on a {H}x{W} image")
+
+
+def _pixels(maps, R: int, C: int, device) -> torch.Tensor:
+    """(B, R*C) int64: each pass's image pixel of canonical pixel (r, c)
+    at r*C + c, through its map (origin, dr, dc)."""
+    r = torch.arange(R, device=device)[:, None]
+    c = torch.arange(C, device=device)[None, :]
+    return torch.stack([(o + r * dr + c * dc).reshape(-1)
+                        for o, dr, dc in maps])
+
+
+def canonical_plain(x: torch.Tensor, pix: torch.Tensor, R: int,
+                    C: int) -> torch.Tensor:
+    """(N, H, W, k) image-layout values -> (B*N, R, C, k), pass-major:
+    each pass's canonical orientation, gathered at its pixels `pix`
+    (_pixels)."""
+    N, k = x.shape[0], x.shape[-1]
+    g = x.reshape(N, -1, k)[:, pix]            # (N, B, R*C, k)
+    return g.transpose(0, 1).reshape(-1, R, C, k)
+
+
+# the skew's fill of the canonical inputs: costs, weights, lo, hi (an
+# empty window outside the image, aggregate.py:450-458 of the JAX module)
+FILLS = (INF, 1.0, 0, -1)
+
+
+def wavefront_scan_plain(cc, w8=None, lo=None, hi=None, *, R, C, maps, wch,
+                         p1, p2, mgm, dir2off, slope, knight=False,
+                         use_fh=False, use_weights=False, fh_restrict=False):
+    """Plain PyTorch version of K5: the TPU's pipeline written out.  Each
+    pass's inputs gathered through its map into canonical orientation
+    (what to_canonical gives), skewed (skew_plain), the front loop
+    (_scan_fronts), unskewed (unskew_plain) and put back in image
+    orientation through the map.  Arguments and result as in
+    wavefront_scan."""
+    N, H, W, L = cc.shape
+    B = len(maps)
+    _check_maps(maps, wch, R, C, H, W, len(set(dir2off)))
+    pix = _pixels(maps, R, C, cc.device)
+    w_c = lo_c = hi_c = None
+    if use_weights:
+        # offset rank outer, then pass, then image
+        w8f = w8.reshape(N, H * W, 8)
+        w_c = torch.stack([torch.stack([w8f[:, pix[b], ch[k]]
+                                        for b, ch in enumerate(wch)])
+                           for k in range(len(wch[0]))]).reshape(-1, R, C, 1)
+    if fh_restrict:
+        lo_c, hi_c = (canonical_plain(x.to(torch.int32)[..., None], pix, R, C)
+                      for x in (lo, hi))
+    vol, w_sk, lo_sk, hi_sk = (
+        None if x is None else skew_plain(x, fill, slope)
+        for x, fill in zip((canonical_plain(cc, pix, R, C), w_c, lo_c, hi_c),
+                           FILLS))
+    _scan_fronts(vol, w_sk, lo_sk, hi_sk, C=C, p1=p1, p2=p2, mgm=mgm,
+                 dir2off=dir2off, slope=slope, knight=knight, use_fh=use_fh,
+                 use_weights=use_weights, fh_restrict=fh_restrict)
+    lr = unskew_plain(vol, C, slope).reshape(B, N, R * C, L)
+    out = torch.empty((B, N, H * W, L), dtype=cc.dtype, device=cc.device)
+    for b in range(B):
+        out[b][:, pix[b]] = lr[b]
+    return out.reshape(B, N, H, W, L)
+
+
+def wavefront_scan(cc, w8=None, lo=None, hi=None, *, R, C, maps, wch, p1, p2,
                    mgm, dir2off, slope, knight=False, use_fh=False,
                    use_weights=False, fh_restrict=False):
-    """K5: the MGM recursion over a skewed canonical pass group.
+    """K5: the MGM recursion over one canonical pass group of B passes,
+    read from and written to image layout.
 
-    vol: (M, R, T, L) float32 skewed costs, T = C + slope*(R-1); updated
-      in place into the aggregated volume and returned.
-    w_sk: (n_off*M, R, T, 1) float32 weights per offset rank (offsets in
-      ascending id order) when use_weights.
-    lo_sk/hi_sk: (M, R, T, 1) int32 label windows when fh_restrict.
+    cc: (N, H, W, L) float32 costs.
+    w8: (N, H, W, 8) float32 edge weights when use_weights.
+    lo/hi: (N, H, W) int32 label windows when fh_restrict.
+    R, C: the canonical rows and columns.  maps: each pass's (origin,
+      dr, dc) (aggregate.pass_map): canonical pixel (r, c) of image n
+      lies at image pixel n*H*W + origin + r*dr + c*dc.  wch: each
+      pass's weight channel (w8's last axis) of each offset rank
+      (offsets in ascending id order).  Plane m = b*N + n of the scan
+      is pass b of image n.
     dir2off: canonical offset id per coupled dir (length mgm).
+    Returns out (B, N, H, W, L) float32: each pass's aggregated volume
+    in image orientation (border pixels hold their costs).
     CPU tensors take the plain version; CUDA tensors launch
     csrc/wavefront.cu once on the current stream, with k5_plan's sizes
     for the shape and the card; a launch the card refuses raises."""
-    kw = dict(C=C, p1=p1, p2=p2, mgm=mgm, dir2off=dir2off, slope=slope,
-              knight=knight, use_fh=use_fh, use_weights=use_weights,
-              fh_restrict=fh_restrict)
-    dev = vol.device
+    kw = dict(R=R, C=C, maps=maps, wch=wch, p1=p1, p2=p2, mgm=mgm,
+              dir2off=dir2off, slope=slope, knight=knight, use_fh=use_fh,
+              use_weights=use_weights, fh_restrict=fh_restrict)
+    dev = cc.device
     if dev.type == "cpu":
-        return wavefront_scan_plain(vol, w_sk, lo_sk, hi_sk, **kw)
+        return wavefront_scan_plain(cc, w8, lo, hi, **kw)
     if dev.type != "cuda":
         raise ValueError(f"wavefront_scan: unsupported device {dev}")
-    if vol.ndim != 4:
-        raise ValueError(f"wavefront_scan: want (M, R, T, L), got "
-                         f"{tuple(vol.shape)}")
-    M, R, T, L = vol.shape
+    if cc.ndim != 4:
+        raise ValueError(f"wavefront_scan: want (N, H, W, L), got "
+                         f"{tuple(cc.shape)}")
+    N, H, W, L = cc.shape
+    B = len(maps)
+    M = B * N
     offs = sorted(set(dir2off))
     if (len(dir2off) != mgm or not 1 <= mgm <= MAX_RANKS
-            or not 1 <= L <= MAX_LABELS or T != C + slope * (R - 1)
-            or slope not in OFF_LAG
+            or not 1 <= L <= MAX_LABELS or slope not in OFF_LAG
             or any(o not in OFF_LAG[slope] for o in offs)):
         raise ValueError(f"wavefront_scan: outside the kernel's limits "
                          f"(mgm {mgm}, dir2off {dir2off}, L {L}, slope "
-                         f"{slope}, T {T} for C {C}, R {R})")
-    _check("vol", vol, (M, R, T, L), (torch.float32,), dev)
-    p = _ScanParams(vol=vol.data_ptr(), M=M, R=R, T=T, C=C, L=L,
-                    slope=slope, mgm=mgm, knight=int(knight),
+                         f"{slope})")
+    _check_maps(maps, wch, R, C, H, W, len(offs))
+    _check("cc", cc, (N, H, W, L), (torch.float32,), dev)
+    out = torch.empty((B, N, H, W, L), dtype=torch.float32, device=dev)
+    mins = torch.empty((M, R, C), dtype=torch.float32, device=dev)
+    p = _ScanParams(cc=cc.data_ptr(), out=out.data_ptr(),
+                    mins=mins.data_ptr(), B=B, N=N, H=H, W=W, M=M, R=R, C=C,
+                    L=L, slope=slope, mgm=mgm, knight=int(knight),
                     use_fh=int(use_fh), use_weights=int(use_weights),
                     fh_restrict=int(fh_restrict), p1=p1, p2=p2,
                     noffs=len(offs))
-    mins = torch.empty((M, R, C), dtype=torch.float32, device=dev)
-    p.mins = mins.data_ptr()
     if use_weights:
-        _check("w_sk", w_sk, (len(offs) * M, R, T, 1), (torch.float32,), dev)
-        p.w = w_sk.data_ptr()
+        _check("w8", w8, (N, H, W, 8), (torch.float32,), dev)
+        p.w8 = w8.data_ptr()
     if fh_restrict:
-        _check("lo_sk", lo_sk, (M, R, T, 1), (torch.int32,), dev)
-        _check("hi_sk", hi_sk, (M, R, T, 1), (torch.int32,), dev)
-        p.lo, p.hi = lo_sk.data_ptr(), hi_sk.data_ptr()
+        _check("lo", lo, (N, H, W), (torch.int32,), dev)
+        _check("hi", hi, (N, H, W), (torch.int32,), dev)
+        p.lo, p.hi = lo.data_ptr(), hi.data_ptr()
     for k, off in enumerate(offs):
         p.off_lag[k], shift = OFF_LAG[slope][off]
         p.off_shift[k] = int(shift)
     for j, off in enumerate(dir2off):
         p.dir_rank[j] = offs.index(off)
+    for b, ((o, dr, dc), ch) in enumerate(zip(maps, wch)):
+        p.origin[b], p.dr[b], p.dc[b] = o, dr, dc
+        for k, c in enumerate(ch):
+            p.wch[b][k] = c
     inst = (dev.index, bool(use_fh), bool(use_weights), L)
 
     def fits(warps):  # the card's occupancy for this instance and size
@@ -438,11 +468,12 @@ def wavefront_scan(vol, w_sk=None, lo_sk=None, hi_sk=None, *, C, p1, p2,
     if err == -1:
         raise RuntimeError(f"wavefront_scan: the card cannot hold the "
                            f"{plan.ctas} CTAs of {plan.warps} warps at once "
-                           f"for {M} planes of {R}x{C} (T {T}), L {L}")
+                           f"for {M} planes of {R}x{C}, slope {slope}, L "
+                           f"{L}")
     if err:
         raise RuntimeError(f"wavefront_scan: CUDA error {err}")
     wavefront_scan.launches += 1
-    return vol
+    return out
 
 
 wavefront_scan.launches = 0

@@ -9,13 +9,13 @@ tighten the windows and solve again) -> median -> LR check both ways
 
 Two solve branches, chosen as the JAX pipeline's `_fused_backend`
 chooses them: NCC costs take the dense branch (the (N, H, W, L) cost
-volume, then `solver.mgm_solve` through the K6/K5/K7 kernels, then
+volume, then `solver.mgm_solve` through the K5 kernel, then
 subpixel refinement on S); every other cost family takes the fused
 branch (`ops/fused.mgm_solve_fused`: costs in flight in K1 for every
 pass schedule of 1-16 directions at TSGM 1-4, SGM or FH, weighted or
 not, WTA and the subpixel taps in K2 or, under per-pixel windows and
 TSGM_ITER, the materialised S assembly, and the knight passes of
-ndir > 8 through K8 and K6/K5/K7; refinement from the taps).  Both
+ndir > 8 through K8 and K5; refinement from the taps).  Both
 branches take per-pixel -m/-M windows, TSGM_ITER (each iteration
 solves again with the same recursion windows and tightened S
 windows, as the JAX loop does) and the TSGM_DEBUG energy audit.

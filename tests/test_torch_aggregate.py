@@ -1,8 +1,9 @@
 """The port's dense cost volume and aggregation against mgm_tpu's.
 
 mgm_tpu runs its XLA path here (the CPU): `aggregate(backend="xla")`
-and the jitted `build_cost_volume`.  The port runs the plain PyTorch
-versions of K6/K5/K7, in the order of operations of the TPU kernel
+and the jitted `build_cost_volume`.  The port runs K5's plain PyTorch
+version (the TPU's skew, front loop and unskew through each pass's
+orientation map), in the order of operations of the TPU kernel
 pallas_wavefront._front_update.  Tolerances:
   - mgm 1: bitwise (min-plus over float32 with no division);
   - otherwise the tolerance tests/test_pallas.py uses between the TPU

@@ -139,8 +139,8 @@ def test_library_is_keyed_by_the_sources():
     assert path == _build.library_path()
     assert path.parent.parent == _build.BUILD_ROOT
     assert {s.name for s in _build._sources()} >= {
-        "fused_wavefront.cu", "wta.cu", "wavefront.cu", "skew.cu",
-        "cost.cu", "mgm_kernels.h", "mgm_device.cuh"}
+        "fused_wavefront.cu", "wta.cu", "wavefront.cu", "cost.cu",
+        "mgm_kernels.h", "mgm_device.cuh"}
 
 
 @pytest.mark.cuda
@@ -506,18 +506,19 @@ def test_fused_schedules_cuda_equal_cpu(cuda, ndir, mgm, k1, k8):
         assert_bitwise(got[k], want[k])
 
 
-# ---- the dense path's kernels: K6 skew, K7 unskew, K5 wavefront_scan ----
+# ---- the dense path's kernel: K5 wavefront_scan (the skew absorbed) ----
 
 @pytest.mark.parametrize("slope", [1, 2])
 @pytest.mark.parametrize("dtype,fill", [(torch.float32, float("inf")),
                                         (torch.int32, -1)])
 def test_skew_plain_is_the_definition(slope, dtype, fill):
-    """K6's plain version: out[a, r, slope*r + c, b] = x[a, r, c, b] and
-    `fill` elsewhere; K7's plain version inverts it (exact copies)."""
+    """The TPU's skew in plain PyTorch (K5's plain version runs through
+    it): out[a, r, slope*r + c, b] = x[a, r, c, b] and `fill` elsewhere;
+    unskew_plain inverts it (exact copies)."""
     rng = np.random.default_rng(2)
     A, R, C, B = 3, 5, 7, 2
     x = torch.from_numpy(rng.integers(-50, 50, (A, R, C, B))).to(dtype)
-    y = wf.skew(x, fill, slope)           # CPU: the plain version
+    y = wf.skew_plain(x, fill, slope)
     T = C + slope * (R - 1)
     assert y.shape == (A, R, T, B) and y.dtype == dtype
     want = torch.full((A, R, T, B), fill, dtype=dtype)
@@ -525,32 +526,60 @@ def test_skew_plain_is_the_definition(slope, dtype, fill):
         for c in range(C):
             want[:, r, slope * r + c] = x[:, r, c]
     assert torch.equal(y, want)
-    assert torch.equal(wf.unskew(y, C, slope), x)
+    assert torch.equal(wf.unskew_plain(y, C, slope), x)
+
+
+def _k5_kw(H=3, W=4, pick=0):
+    plan = tagg.group_plan(tagg._pass_groups(8, 2)[pick], H, W, 2)
+    return tagg.scan_kwargs(plan, p1=1.0, p2=2.0, mgm=2, use_fh=False,
+                            use_weights=False, fh_restrict=False)
 
 
 def test_dense_wrappers_refuse_other_devices():
     meta = torch.empty((2, 3, 4, 5), device="meta")
     with pytest.raises(ValueError, match="device"):
-        wf.skew(meta, 0.0, 1)
-    with pytest.raises(ValueError, match="device"):
-        wf.unskew(meta, 2, 1)
-    with pytest.raises(ValueError, match="device"):
-        wf.wavefront_scan(meta, C=2, p1=1.0, p2=2.0, mgm=1, dir2off=(0,),
-                          slope=1)
+        wf.wavefront_scan(meta, **_k5_kw())
+
+
+def test_k5_refuses_a_map_off_the_image():
+    """A pass map that is no orientation of the image (a wrong stride,
+    a corner outside) is refused before anything is read."""
+    cc = torch.zeros((1, 3, 4, 5))
+    kw = _k5_kw()
+    for maps in (((0, 4, 2),) * 2, ((1, 4, 1),) * 2, ((0, 1, 4),) * 2):
+        with pytest.raises(ValueError, match="pass map"):
+            wf.wavefront_scan(cc, **dict(kw, maps=maps))
 
 
 def test_dense_plain_runs_on_cpu_without_counting():
     unary, w, _ = synthetic_mrf(7, 9, 6, seed=1)
-    n = (wf.skew.launches, wf.unskew.launches, wf.wavefront_scan.launches)
+    n = wf.wavefront_scan.launches
     lab = solve_mrf(unary, 8, 8.0, 32.0, 2, 0, w, device="cpu")
     assert lab.shape == (7, 9) and lab.dtype == np.float32
-    assert (wf.skew.launches, wf.unskew.launches,
-            wf.wavefront_scan.launches) == n
+    assert wf.wavefront_scan.launches == n
+
+
+@pytest.mark.parametrize("pid", range(16))
+def test_pass_map_is_to_canonical(pid):
+    """pass_map addresses canonical pixel (r, c) of each of the 16
+    passes where to_canonical puts it: an index image (H != W) gathered
+    through the map equals its canonical orientation."""
+    H, W = 5, 7
+    spec = tagg.PASS_TABLE[pid]
+    idx = torch.arange(H * W).reshape(1, H, W)
+    want = tagg.to_canonical(idx, spec, 1, 2)[0]
+    o, dr, dc = tagg.pass_map(spec, H, W)
+    R, C = want.shape
+    got = (o + torch.arange(R)[:, None] * dr
+           + torch.arange(C)[None, :] * dc)
+    assert torch.equal(got, want)
+    assert tagg.group_plan([pid], H, W, 1).maps == ((o, dr, dc),)
 
 
 def _group_case(rng, *, N, H, W, L, ndir, mgm, use_fh=False,
                 use_weights=False, fh_restrict=False, pick=0):
-    """One pass group's canonical inputs and K5 arguments on the CPU."""
+    """One pass group's image-layout inputs (cc, w8, lo, hi), its plan
+    and K5's keyword arguments on the CPU."""
     lo = np.zeros((N, H, W), np.int32)
     hi = np.full((N, H, W), L - 1, np.int32)
     if fh_restrict:
@@ -563,13 +592,11 @@ def _group_case(rng, *, N, H, W, L, ndir, mgm, use_fh=False,
     w8 = np.where(rng.random((N, H, W, 8)) < 0.5, 0.25, 1.0)
     pids = tagg._pass_groups(ndir, mgm)[pick]
     plan = tagg.group_plan(pids, H, W, mgm)
-    canon = tagg.canonical_inputs(
-        plan, torch.from_numpy(cc), torch.from_numpy(w8.astype(np.float32)),
-        torch.from_numpy(lo), torch.from_numpy(hi), use_weights=use_weights,
-        fh_restrict=fh_restrict)
+    inputs = tuple(torch.from_numpy(a) for a in (cc, w8.astype(np.float32),
+                                                 lo, hi))
     kw = tagg.scan_kwargs(plan, p1=8.0, p2=32.0, mgm=mgm, use_fh=use_fh,
                           use_weights=use_weights, fh_restrict=fh_restrict)
-    return canon, plan, kw
+    return inputs, plan, kw
 
 
 # (ndir, mgm, fh, weights, fh_restrict, group): slope 1 and 2, SGM and
@@ -579,6 +606,54 @@ DENSE_CASES = [
     (8, 2, False, False, False, 2), (8, 3, True, True, False, 3),
     (8, 4, False, True, False, 1), (8, 3, True, True, True, 2),
     (16, 4, False, False, False, 4), (16, 2, True, False, False, 5)]
+
+
+def _old_pipeline(plan, cc, w8, lo, hi, kw):
+    """The TPU's dense pipeline spelled out: canonical copies of each
+    pass's inputs (to_canonical), the skew, the front loop, the unskew,
+    each pass back to image orientation (from_canonical), stacked
+    (B, N, H, W, L)."""
+    specs, R, C = plan.specs, plan.R, plan.C
+    cc_c = torch.stack([tagg.to_canonical(cc, s, 1, 2) for s in specs])
+    cc_c = cc_c.reshape(len(specs) * cc.shape[0], R, C, cc.shape[-1])
+    w_c = lo_c = hi_c = None
+    if kw["use_weights"]:
+        wmaps = []
+        for s in specs:
+            chs = [s.wch[plan.dir2off.index(o)] for o in plan.offs]
+            wmaps.append(torch.stack([tagg.to_canonical(w8[..., c], s, 1, 2)
+                                      for c in chs]))
+        w_c = torch.stack(wmaps, 1).reshape(-1, R, C, 1)
+    if kw["fh_restrict"]:
+        lo_c, hi_c = (torch.stack([tagg.to_canonical(x, s, 1, 2)
+                                   for s in specs]).reshape(-1, R, C, 1)
+                      for x in (lo, hi))
+    sk = [None if x is None else wf.skew_plain(x, fill, plan.slope)
+          for x, fill in zip((cc_c.contiguous(), w_c, lo_c, hi_c),
+                             (float("inf"), 1.0, 0, -1))]
+    front = {k: kw[k] for k in ("C", "p1", "p2", "mgm", "dir2off", "slope",
+                                "knight", "use_fh", "use_weights",
+                                "fh_restrict")}
+    wf._scan_fronts(*sk, **front)
+    lr = wf.unskew_plain(sk[0], C, plan.slope).reshape(
+        len(specs), cc.shape[0], R, C, cc.shape[-1])
+    return torch.stack([tagg.from_canonical(lr[b], s, 1, 2)
+                        for b, s in enumerate(specs)])
+
+
+@pytest.mark.parametrize("case", DENSE_CASES)
+def test_plain_k5_is_the_old_pipeline(case):
+    """K5's plain version (inputs gathered through the pass maps) is
+    bitwise the pipeline it replaces: canonicalise, skew, front loop,
+    unskew, un-canonicalise, on 2 problems of 9 x 11 pixels, L = 6."""
+    ndir, mgm, fh, weights, restrict, pick = case
+    rng = np.random.default_rng(20 + pick)
+    inputs, plan, kw = _group_case(rng, N=2, H=9, W=11, L=6, ndir=ndir,
+                                   mgm=mgm, use_fh=fh, use_weights=weights,
+                                   fh_restrict=restrict, pick=pick)
+    got = wf.wavefront_scan(*inputs, **kw)       # CPU: the plain version
+    assert got.shape == (len(plan.specs), 2, 9, 11, 6)
+    assert_bitwise(got.numpy(), _old_pipeline(plan, *inputs, kw).numpy())
 
 
 # K5's one launch a pass group at each instance's edges of L (two planes
@@ -594,45 +669,37 @@ DENSE_CASES = [
 def test_dense_kernels_match_plain(cuda, case, L, monkeypatch):
     ndir, mgm, fh, weights, restrict, pick = case
     rng = np.random.default_rng(L + pick)
-    canon, plan, kw = _group_case(rng, N=2, H=21, W=26, L=L, ndir=ndir,
-                                  mgm=mgm, use_fh=fh, use_weights=weights,
-                                  fh_restrict=restrict, pick=pick)
-    canon = tuple(None if x is None else x.to(cuda) for x in canon)
-    got = tagg.skewed_inputs(canon, plan.slope)
-    want = tagg.skewed_inputs(canon, plan.slope, skew=wf.skew_plain)
-    for g, w in zip(got, want):   # K6 copies 32-bit words as they are
-        if w is not None:
-            assert np.array_equal(g.cpu().numpy().view(np.uint32),
-                                  w.cpu().numpy().view(np.uint32))
-    ref = wf.wavefront_scan_plain(want[0].clone(), *want[1:], **kw)
+    inputs, plan, kw = _group_case(rng, N=2, H=21, W=26, L=L, ndir=ndir,
+                                   mgm=mgm, use_fh=fh, use_weights=weights,
+                                   fh_restrict=restrict, pick=pick)
+    inputs = tuple(x.to(cuda) for x in inputs)
+    ref = wf.wavefront_scan_plain(*inputs, **kw)
     k5_plan = wf.k5_plan
     for sms in (None, None, None, 1, 3):
         if sms:
             monkeypatch.setattr(wf, "k5_plan", lambda *a, s=sms: k5_plan(
                 *a[:5], s))
-        vol = wf.wavefront_scan(got[0].clone(), *got[1:], **kw)
+        out = wf.wavefront_scan(*inputs, **kw)
         torch.cuda.synchronize()
-        assert_bitwise(vol.cpu().numpy(), ref.cpu().numpy())
-    assert_bitwise(wf.unskew(vol, plan.C, plan.slope).cpu().numpy(),
-                   wf.unskew_plain(ref, plan.C, plan.slope).cpu().numpy())
+        assert_bitwise(out.cpu().numpy(), ref.cpu().numpy())
 
 
 @pytest.mark.cuda
 def test_k5_call_is_one_device_launch(cuda):
     """One wavefront_scan call launches one device kernel (no kernel a
-    front), by torch.profiler."""
+    front, no layout copies), by torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(3)
-    canon, plan, kw = _group_case(rng, N=2, H=30, W=40, L=151, ndir=8,
-                                  mgm=2, pick=2)
-    sk = wf.skew(canon[0].to(cuda), float("inf"), plan.slope)
-    wf.wavefront_scan(sk.clone(), **kw)   # loaded, counts buffer made
-    x = sk.clone()
+    inputs, plan, kw = _group_case(rng, N=2, H=30, W=40, L=151, ndir=8,
+                                   mgm=2, pick=2)
+    cc = inputs[0].to(cuda)
+    out = wf.wavefront_scan(cc, **kw)   # loaded, counts buffer made
+    del out
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wf.wavefront_scan(x, **kw)
+        wf.wavefront_scan(cc, **kw)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -641,17 +708,29 @@ def test_k5_call_is_one_device_launch(cuda):
 
 @pytest.mark.cuda
 def test_dense_paths_cuda_equal_cpu(cuda):
+    """The dense paths through K5 on the card equal their CPU runs: mgm_o
+    (the unary also in mrf_cli's label-major layout, which aggregate
+    copies once), ncc, and the knight passes of ndir 16 (the fused
+    solve's leftovers)."""
     unary, w, _ = synthetic_mrf(20, 27, 12, seed=4)
+    label_major = np.ascontiguousarray(unary.transpose(2, 0, 1)).transpose(
+        1, 2, 0)
     for vtype in (0, 1):
-        n = wf.wavefront_scan.launches
-        got = solve_mrf(unary, 8, 8.0, 32.0, 2, vtype, w, device=cuda)
-        assert wf.wavefront_scan.launches == n + 4   # one per pass group
-        assert_bitwise(got, solve_mrf(unary, 8, 8.0, 32.0, 2, vtype, w,
-                                      device="cpu"))
+        want = solve_mrf(unary, 8, 8.0, 32.0, 2, vtype, w, device="cpu")
+        for un in (unary, label_major):
+            n = wf.wavefront_scan.launches
+            got = solve_mrf(un, 8, 8.0, 32.0, 2, vtype, w, device=cuda)
+            assert wf.wavefront_scan.launches == n + 4   # one a pass group
+            assert_bitwise(got, want)
     u, v, _ = synthetic_pair(24, 40, -8, 4, seed=3)
-    cfg = get_preset("ncc", dmin=-8, dmax=4)
-    got = compute_disparity(u, v, cfg, device=cuda)
-    want = compute_disparity(u, v, cfg, device="cpu")
-    assert sorted(got) == sorted(want)
-    for k in got:
-        assert_bitwise(got[k], want[k])
+    for cfg, groups in ((get_preset("ncc", dmin=-8, dmax=4), 4),
+                        (MGMConfig(dmin=-8, dmax=4, ndir=16, mgm=2,
+                                   distance="ad", p1=8, p2=32,
+                                   test_lr=True), 2)):
+        n = wf.wavefront_scan.launches
+        got = compute_disparity(u, v, cfg, device=cuda)
+        assert wf.wavefront_scan.launches == n + groups
+        want = compute_disparity(u, v, cfg, device="cpu")
+        assert sorted(got) == sorted(want)
+        for k in got:
+            assert_bitwise(got[k], want[k])
