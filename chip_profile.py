@@ -43,8 +43,8 @@ For each run it prints
   - that run's peak device memory;
   - under torch.profiler over N runs: the device's busy share (the
     union of kernel and copy intervals over the host wall), device time
-    by kernel name, and K1's, K5's, K4's and (before the skew went into
-    K5) K6/K7's device time and launches a run.
+    by kernel name, and K1's, K2's, K4's, K5's, K8's and (before the
+    skew went into K5) K6/K7's device time and launches a run.
 With --out DIR the full tables also go to DIR/profile.json; --rows
 names the runs to make (default: all); --repo DIR profiles the
 mgm_tpu_torch package of another checkout (e.g. the parent commit, to
@@ -82,6 +82,11 @@ K4_KERNELS = ("fused_block_cluster", "band_front")
 # K6's and K7's (the skew copy and its inverse), in a checkout from before
 # they went into K5's addressing
 SKEW_KERNELS = ("shift_rows",)
+# K2's: the persistent launch over runs of pixels, or, before its
+# redesign, the warp-a-pixel kernel
+K2_KERNELS = ("wta_runs", "wta_kernel")
+# K8's: the finished volume, or, before its redesign, the raw volume
+K8_KERNELS = ("cost_volume_kernel", "cost_kernel")
 
 
 class _Stages:
@@ -365,6 +370,8 @@ def main(argv=None) -> int:
         k5_ms, k5_n = device(K5_KERNELS)
         k4_ms, k4_n = device(K4_KERNELS)
         k67_ms, k67_n = device(SKEW_KERNELS)
+        k2_ms, k2_n = device(K2_KERNELS)
+        k8_ms, k8_n = device(K8_KERNELS)
         report["runs"][name]["k1_kernels_ms"] = k1_ms
         report["runs"][name]["k1_launches"] = k1_n
         report["runs"][name]["k5_kernels_ms"] = k5_ms
@@ -373,11 +380,17 @@ def main(argv=None) -> int:
         report["runs"][name]["k4_launches"] = k4_n
         report["runs"][name]["k6_k7_kernels_ms"] = k67_ms
         report["runs"][name]["k6_k7_launches"] = k67_n
+        report["runs"][name]["k2_kernels_ms"] = k2_ms
+        report["runs"][name]["k2_launches"] = k2_n
+        report["runs"][name]["k8_kernels_ms"] = k8_ms
+        report["runs"][name]["k8_launches"] = k8_n
         report["runs"][name]["block"] = fused_shard.BLOCK
         print(f"   K1's kernels: {k1_ms:.3f} ms of device time a run in "
               f"{k1_n:.0f} launches; K5's: {k5_ms:.3f} ms in {k5_n:.0f} "
               f"launches; K4's: {k4_ms:.3f} ms in {k4_n:.0f} launches; "
-              f"K6/K7's: {k67_ms:.3f} ms in {k67_n:.0f} launches")
+              f"K6/K7's: {k67_ms:.3f} ms in {k67_n:.0f} launches; K2's: "
+              f"{k2_ms:.4f} ms in {k2_n:.0f} launches; K8's: {k8_ms:.4f} ms "
+              f"in {k8_n:.0f} launches")
         print(f"   profiler: device busy {busy:.4f} of the host wall "
               f"({pwall / args.reps:.3f} ms a run profiled), device window "
               f"{window / args.reps:.3f} ms a run")

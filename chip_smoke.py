@@ -24,7 +24,9 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
  5. K1 and K2 against their plain versions at cfg1's full shape (the
     synthetic pair, 700x500, L = 151, both LR sides): bitwise equal, K1
     in each of RACE_RUNS runs (a missing synchronisation shows as a
-    race);
+    race); then K2's time at cfg1 (no taps) beside its plain version's,
+    torch.min's over the summed volume and its bound: the kernels'
+    record;
  6. the dense path's kernel K5 (wavefront scan, reading and writing
     image layout through each pass's orientation map: the TPU's skew
     and unskew absorbed into its addressing) against its plain version
@@ -59,10 +61,18 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     wide, L = 151, both LR sides, for the V group (ndir 8, TSGM 2,
     slope 0) and the packed-parity group (ndir 8, TSGM 4, PA + PB):
     bitwise equal;
-11. K8 (pointwise cost volume) against its plain version at 700x500,
-    L = 151, for ad, sd, btad, btsd and census (random packed words):
-    bitwise equal; then its time at full_16dir's two calls beside its
-    plain version's;
+11. K8 (the finished cost volume: raw costs, truncation, windows and
+    the all-invalid rule in one pass) against its plain version
+    (build_cost_volume's composition) at 700x500, L = 151, for ad, sd,
+    btad, btsd and census (random packed words), NaN pixels, windows
+    the truth +- 8 with every 7th empty, and written into a slice of a
+    stack: bitwise equal; then, at full_16dir's two sides (the full
+    band), the kernel's call and the `_dense_cc` stage held bitwise
+    against the plain version and their times beside its plain
+    version's and its bound; then, by torch.profiler in
+    a process of its own, K2 one device launch a call (cfg1, cfg2 +
+    taps) and the `_dense_cc` stage two K8 launches and no other kernel
+    over a volume;
 12. full_16dir (bench_matrix's row: fast_ad at ndir 16, TSGM 2) end to
     end as phase 4, through K1 (A/B and V groups), K8 and K5 on the
     knight passes (launch counters; K5 one device launch a knight group
@@ -79,9 +89,9 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     TSGM 3, A/B at slope 2 and V, both LR sides): bitwise equal, K1 in
     each of RACE_RUNS runs; then
     each one's time beside its plain version's, K2's beside torch.min,
-    and their bounds: the kernels' record; then the same check at
-    cfg4's full shape (sobelx_tl: AD on 3 float channels truncated at
-    63*3, FH, ndir 8, TSGM 3);
+    and their bounds (K1's record; K2's `cfg2_taps`); then the same
+    check for cfg4 (sobelx_tl: AD on 3 float channels truncated at
+    63*3, FH, ndir 8, TSGM 3) on a 64-row strip, 700 wide;
 16. K1 and K2 against their plain versions on a 64-row strip, 700 wide,
     L = 151: the `bt` preset (btad blocks, SGM, TSGM 2), cfg2 with
     edge weights (aP2 0.5) and fast_ad at ndir 8 with edge weights
@@ -172,8 +182,11 @@ recursion's over 2 ranks (phase 24).  One K1 call is one cluster launch
 that steps every front of its scan direction inside the kernel; one K4
 call is one launch of the same kernel body on a band that steps a
 block's fronts inside the kernel; one K5 call is one launch that steps
-every front of its pass group inside the kernel.  K1's and K2's times
-and bounds are cfg2's (phase 15).  `bound_ms` is the larger of the
+every front of its pass group inside the kernel; one K2 call is one
+persistent launch over runs of pixels; one K8 call is one launch a
+volume.  K1's times and bounds are cfg2's (phase 15), K2's cfg1's
+(phase 5; cfg2's with taps, phase 15, under `cfg2_taps`), K8's
+full_16dir's two sides (phase 11).  `bound_ms` is the larger of the
 bytes the call must move over 3.35 TB/s and its float32 operations over
 67 TFLOP/s (the H100 SXM's published peaks).
 """
@@ -220,6 +233,9 @@ NEW_REPS = 3                     # timed runs of phases 20-26
 RACE_RUNS = 5                    # K1 / K5 runs held against one plain run
 K5_KERNEL = "wavefront_rows"     # K5's device kernel (csrc/wavefront.cu)
 K4_KERNEL = "fused_block_cluster"  # K4's (csrc/fused_wavefront.cuh)
+K8_KERNEL = "cost_volume_kernel"   # K8's (csrc/cost.cu)
+K2_KERNEL = "wta_runs"             # K2's (csrc/wta.cu)
+LAUNCH_REPS = 3                  # runs counted by the profiler, phase 11
 SHARD_KERNELS = ("fused_block", "wta")
 # cfg3 (the satellite preset): 279x271x1 pairs, disparities -22..19
 SAT_H, SAT_W, SAT_DMIN, SAT_DMAX = 271, 279, -22, 19
@@ -372,20 +388,44 @@ def _event_once(fn):
     return start.elapsed_time(stop), out
 
 
-def _device_launches(fn, name: str) -> int:
-    """The device kernels whose name holds `name` that one fn() run
-    launches, by torch.profiler."""
+def _device_kernels(fn, reps: int = 1) -> dict:
+    """{device kernel name: [launches, device ms]} of `reps` fn() runs,
+    by torch.profiler.  Small kernels of its own run before and after
+    them, with a pause: on the H100 the profiler has missed kernels
+    launched as it started or stopped (one of two K8 launches, a lone
+    K2 launch), and then it misses those."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        x = torch.zeros(256, device="cuda")
+        for _ in range(8):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        pad()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and name in e.name)
+        pad()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rec = out.setdefault(e.name, [0, 0.0])
+            rec[0] += 1
+            rec[1] += (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
+def _device_launches(fn, name: str, reps: int = 1) -> int:
+    """The device kernels whose name holds `name` that `reps` fn() runs
+    launch, by torch.profiler."""
+    return sum(c for k, (c, _) in _device_kernels(fn, reps).items()
+               if name in k)
 
 
 def _dense_device(phase, tag, fn, calls: int, groups: int) -> None:
@@ -429,7 +469,7 @@ def _kernels() -> dict:
     return {"fused_wavefront": cuda_fused.fused_wavefront,
             "wta": cuda_fused.wta, "fused_block": cuda_fused.fused_block,
             "wavefront_scan": wf.wavefront_scan,
-            "pointwise_volume": cuda_cost.pointwise_volume}
+            "pointwise_volume": cuda_cost.cost_volume}
 
 
 def _counts(names):
@@ -624,7 +664,6 @@ def _fused_timing(phase, tag, cfg, u, v, errs, card):
     beside its plain version's, K2's beside torch.min over the summed
     volume, and their bounds.  Returns (ms, plain_ms, library_ms,
     bounds), each {kernel name: value}."""
-    import torch
     from mgm_tpu_torch.ops import cuda_fused
 
     plain_ms = {"fused_wavefront": _fused_check(phase, ((tag, cfg, None),),
@@ -633,32 +672,54 @@ def _fused_timing(phase, tag, cfg, u, v, errs, card):
     ms = {"fused_wavefront": _event_ms(lambda: _planes(
         cuda_fused.fused_wavefront, cfg, inp), 3)}
     vol, ns = _planes(cuda_fused.fused_wavefront, cfg, inp)
-    sides = inp["sides"]
+    library_ms = {"fused_wavefront": None}
+    bounds = {"fused_wavefront": _k1_bound(cfg, inp, ns)}
+    (ms["wta"], plain_ms["wta"], library_ms["wta"],
+     bounds["wta"]) = _k2_timing(phase, tag, vol, ns, inp["sides"], True,
+                                 card)
+    del vol
+    n_sides = len(inp["sides"])
+    name = "fused_wavefront"
+    print(f"[{phase}] {name}: {ms[name]:.3f} ms, plain "
+          f"{plain_ms[name]:.3f} ms, bound {bounds[name][0]:.3f} ms "
+          f"({bounds[name][1]}) at {tag}'s shapes ({ns * n_sides} planes "
+          f"{H}x{W}, L={inp['L']}; every fused group, forward + backward "
+          f"launch) on {card}", flush=True)
+    return ms, plain_ms, library_ms, bounds
+
+
+def _k2_timing(phase, tag, vol, ns, sides, taps, card):
+    """K2 on K1's volume `vol` (ns spaces): its device time, its plain
+    version's, torch.min's
+    over the summed volume (computes less: no space sum, no window, no
+    taps) and its bound.  Returns (ms, plain_ms, library_ms, (bound_ms,
+    bound_by))."""
+    import torch
+    from mgm_tpu_torch.ops import cuda_fused
+
+    def k2():
+        return cuda_fused.wta(vol, nspaces=ns, sides=sides, want_taps=taps)
+
+    ms = _event_ms(k2, 10)
+    plain = _event_ms(lambda: cuda_fused.wta_plain(
+        vol, nspaces=ns, sides=sides, want_taps=taps), 3)
     n_sides = len(sides)
-    ms["wta"] = _event_ms(lambda: cuda_fused.wta(
-        vol, nspaces=ns, sides=sides, want_taps=True), 10)
-    plain_ms["wta"] = _event_ms(lambda: cuda_fused.wta_plain(
-        vol, nspaces=ns, sides=sides, want_taps=True), 3)
-    # K2's library yardstick: torch.min over the summed volume
     ssum = vol[:n_sides]
     for si in range(1, ns):
         ssum = ssum + vol[si * n_sides:(si + 1) * n_sides]
-    library_ms = {"fused_wavefront": None,
-                  "wta": _event_ms(lambda: torch.min(ssum, dim=-1), 10)}
+    lib = _event_ms(lambda: torch.min(ssum, dim=-1), 10)
     del ssum
-    # K2 reads the volume once and writes disp, cost and the 4 taps
-    bounds = {"fused_wavefront": _k1_bound(cfg, inp, ns),
-              "wta": _bound(vol.numel() * 4 + 6 * n_sides * H * W * 4,
-                            2 * vol.numel())}
-    del vol
-    for name in ms:
-        print(f"[{phase}] {name}: {ms[name]:.3f} ms, plain "
-              f"{plain_ms[name]:.3f} ms, library {library_ms[name]} ms, "
-              f"bound {bounds[name][0]:.3f} ms ({bounds[name][1]}) at {tag}'s "
-              f"shapes ({ns * n_sides} planes {H}x{W}, L={inp['L']}; K1 = "
-              f"every fused group, forward + backward launch) on {card}",
-              flush=True)
-    return ms, plain_ms, library_ms, bounds
+    # the volume read once; disp and cost (and the 4 taps) written; per
+    # cell the space sum and the windowed compare
+    outs = (6 if taps else 2) * n_sides * H * W * 4
+    bound = _bound(vol.numel() * 4 + outs, 2 * vol.numel())
+    print(f"[{phase}] wta (K2{' + taps' if taps else ''}) at {tag}: "
+          f"{ms:.4f} ms, plain {plain:.3f} ms, "
+          f"torch.min over the summed volume {lib:.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}): {bound[0] / ms:.1%} of it "
+          f"({ns} spaces x {n_sides} sides, {H}x{W}, L={vol.shape[-1]}) on "
+          f"{card}", flush=True)
+    return ms, plain, lib, bound
 
 
 def _index_windows(d_true, cfg, rng):
@@ -804,14 +865,14 @@ def _k4_launch_worker() -> int:
     return 0
 
 
-def _k4_launches_process() -> dict:
-    """Runs _k4_launch_worker in a process of its own; its record."""
-    res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--k4-launches"], capture_output=True, text=True,
-                         timeout=600)
-    lines = [ln for ln in res.stdout.splitlines() if ln.startswith('{"calls"')]
+def _launches_process(flag: str) -> dict:
+    """Runs this script with `flag` (a launch-count worker) in a process
+    of its own; the JSON record it prints last."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                         capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
     if res.returncode != 0 or not lines:
-        raise AssertionError(f"the K4 launch count failed "
+        raise AssertionError(f"the launch count {flag} failed "
                              f"({res.returncode}):\n{res.stdout[-2000:]}"
                              f"{res.stderr[-2000:]}")
     return json.loads(lines[-1])
@@ -1014,12 +1075,193 @@ def _two_processes(phase, tag, ref, card):
     return recs[0]["launches"], med, recs[0]["backend"]
 
 
+def _k8_check(u, v, d_true, dev):
+    """K8 (cuda_cost.cost_volume) bitwise against its plain version
+    (build_cost_volume's plain composition, cuda_cost.cost_volume_plain)
+    at 700x500, L = 151 in every family: the synthetic pair with NaN
+    pixels (census: random words), per-pixel windows the truth +- 8 with
+    every 7th pixel's empty, finite and infinite truncations, and once
+    through build_cost_volume into a slice of a stack; returns the max
+    abs err."""
+    import torch
+    from mgm_tpu_torch.ops import cuda_cost
+    from mgm_tpu_torch.ops.cost import _bt_aux, build_cost_volume
+
+    ut, vt = (torch.from_numpy(a).to(dev).float() for a in (u, v))
+    ut[::37, ::41], vt[5::53, ::29] = float("nan"), float("nan")
+    rng = np.random.default_rng(11)
+    words = tuple(torch.from_numpy(
+        rng.integers(0, 2**32, (H, W, CENSUS_WORDS), dtype=np.uint64)
+        .astype(np.uint32).view(np.int32)).to(dev) for _ in range(2))
+    bt = tuple(torch.cat([a, *_bt_aux(a)], -1) for a in (ut, vt))
+    lo = np.floor(d_true).astype(np.int32) - 8 - DMIN
+    hi = lo + 16
+    hi.reshape(-1)[::7] = lo.reshape(-1)[::7] - 1
+    lo, hi = (torch.from_numpy(a).to(dev) for a in (lo, hi))
+    # (images, truncation per channel) of each family
+    cases = {"ad": ((ut, vt), float("inf")), "sd": ((ut, vt), 900.0),
+             "census": (words, 0.25), "btad": (bt, float("inf")),
+             "btsd": (bt, 40.0)}
+    errs = {}
+    for mode, ((a, b), trunc) in cases.items():
+        kw = dict(gmin=DMIN, L=L, mode=mode, tmax=trunc * a.shape[-1]
+                  / (3 if mode in ("btad", "btsd") else 1))
+        errs[mode] = _compare(f"K8 {mode}",
+                              cuda_cost.cost_volume(a, b, lo, hi, **kw),
+                              cuda_cost.cost_volume_plain(a, b, lo, hi, **kw))
+    stack = torch.full((2, H, W, L), -1.0, device=dev)
+    build_cost_volume(vt, ut, lo, hi, -DMAX, distance="ad", L=L,
+                      trunc_dist=30.0, out=stack[1])
+    errs["ad (build_cost_volume)"] = _compare(
+        "K8 into a slice", stack[1], cuda_cost.cost_volume_plain(
+            vt, ut, lo, hi, gmin=-DMAX, L=L, mode="ad", tmax=90.0))
+    if not bool((stack[0] == -1.0).all()):
+        raise AssertionError("K8 wrote outside its slice of the stack")
+    print(f"[11] K8 == plain (build_cost_volume's composition) at {H}x{W}, "
+          f"L={L} in every family: NaN pixels, windows the truth +- 8 with "
+          f"every 7th empty, census on {CENSUS_WORDS} random words a pixel, "
+          f"and into a slice of a stack: {TOL}, max abs err {errs}",
+          flush=True)
+    return max(errs.values())
+
+
+def _dense_stage(ut, vt, cfg):
+    """full_16dir's `_dense_cc`: both sides' K8 volumes of (ut, vt)."""
+    from mgm_tpu_torch.ops import fused
+
+    return fused._dense_cc(ut[None], vt[None], sides=(
+        (cfg.dmin, 0, cfg.dmax - cfg.dmin), (-cfg.dmax, 0,
+                                             cfg.dmax - cfg.dmin)),
+        L=cfg.dmax - cfg.dmin + 1, mode=cfg.distance,
+        trunc_dist=cfg.trunc_dist)
+
+
+def _k2k8_launch_worker() -> int:
+    """Phase 11's device-kernel counts, in a process of its own (late in
+    a long one torch.profiler loses kernels: phase 24): LAUNCH_REPS K2
+    calls at cfg1 (no taps) and at cfg2 (taps) on K1's volumes, and
+    LAUNCH_REPS runs of full_16dir's `_dense_cc` (after a warm run of
+    each); prints them as JSON."""
+    sys.path.insert(0, REPO)
+    import torch
+    from mgm_tpu_torch.models import get_preset
+    from mgm_tpu_torch.ops import cuda_fused
+    from mgm_tpu_torch.synthetic import synthetic_pair
+
+    u, v, _ = synthetic_pair(H, W, DMIN, DMAX, seed=0)
+    rec = {}
+    for tag, cfg, taps in (
+            ("cfg1", _fast_ad(), False),
+            ("cfg2", get_preset("census_tl", dmin=DMIN, dmax=DMAX,
+                                test_lr=True), True)):
+        inp = _k1_inputs(cfg, u, v)
+        vol, ns = _planes(cuda_fused.fused_wavefront, cfg, inp)
+
+        def k2():
+            return cuda_fused.wta(vol, nspaces=ns, sides=inp["sides"],
+                                  want_taps=taps)
+
+        k2()
+        n = cuda_fused.wta.launches
+        device = _device_launches(k2, K2_KERNEL, LAUNCH_REPS)
+        rec[tag] = {"device": device, "calls": cuda_fused.wta.launches - n}
+        del vol
+    ut, vt = (torch.from_numpy(a).cuda().float() for a in (u, v))
+    cfg = _fast_ad(ndir=16)
+    _dense_stage(ut, vt, cfg)
+    rec["dense_cc"] = _device_kernels(lambda: _dense_stage(ut, vt, cfg),
+                                      LAUNCH_REPS)
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def _k2k8_launches() -> None:
+    """Phase 11's device-kernel counts (_k2k8_launch_worker): K2 one
+    device launch a call at cfg1 and cfg2; full_16dir's `_dense_cc` two
+    K8 launches a run and no other kernel over a volume (every other
+    launch under a tenth of a K8 launch: a pass over a volume takes at
+    least its write, 0.063 ms; the profiler's pads and the windows'
+    fills take microseconds)."""
+    rec = _launches_process("--k2k8-launches")
+    kern = rec["dense_cc"]
+    n8 = sum(c for k, (c, _) in kern.items() if K8_KERNEL in k)
+    k8_dev = sum(t for k, (_, t) in kern.items() if K8_KERNEL in k)
+    others = {k: c for k, c in kern.items() if K8_KERNEL not in k}
+    print(f"[11] device kernels by torch.profiler in a process of its own, "
+          f"{LAUNCH_REPS} runs: K2 at cfg1 {rec['cfg1']}, at cfg2 + taps "
+          f"{rec['cfg2']} (device launches, wrapper calls); full_16dir's "
+          f"_dense_cc: {n8} K8 launches, {k8_dev:.4f} ms, the other "
+          f"kernels (launches, ms) {others}", flush=True)
+    for tag in ("cfg1", "cfg2"):
+        if not rec[tag]["device"] == rec[tag]["calls"] == LAUNCH_REPS:
+            raise AssertionError(f"K2 at {tag}: {rec[tag]}")
+    if n8 != 2 * LAUNCH_REPS or any(t / c > 0.1 * k8_dev / n8
+                                    for c, t in others.values()):
+        raise AssertionError(f"_dense_cc ran {n8} K8 launches in "
+                             f"{LAUNCH_REPS} runs and {others}")
+
+
+def _k8_timing(u, v, card):
+    """K8 at full_16dir's two sides (ad, 3 channels, the full band): the
+    two launches' device time, the `_dense_cc` stage's, the plain
+    version's time and the bound, after holding both sides of each
+    bitwise against the plain version.  Returns ((ms, plain_ms,
+    library_ms, (bound_ms, bound_by)), max abs err)."""
+    import torch
+    from mgm_tpu_torch.ops import cuda_cost
+
+    dev = torch.device("cuda")
+    ut, vt = (torch.from_numpy(a).to(dev).float() for a in (u, v))
+    cfg = _fast_ad(ndir=16)
+    lo = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    hi = torch.full((H, W), L - 1, dtype=torch.int32, device=dev)
+    out = torch.empty((2, H, W, L), device=dev)
+    tmax = cfg.trunc_dist * 3
+
+    def k8(fn, **o):
+        return lambda: (fn(ut, vt, lo, hi, gmin=DMIN, L=L, mode="ad",
+                           tmax=tmax, **{k: t[0] for k, t in o.items()}),
+                        fn(vt, ut, lo, hi, gmin=-DMAX, L=L, mode="ad",
+                           tmax=tmax, **{k: t[1] for k, t in o.items()}))
+
+    def stage():
+        return _dense_stage(ut, vt, cfg)
+
+    # the timed inputs first held against the plain version: both sides
+    # of the kernel's own call and of the `_dense_cc` stage
+    want = k8(cuda_cost.cost_volume_plain)()
+    got = k8(cuda_cost.cost_volume, out=out)() + tuple(stage())
+    err = max(_compare(f"K8 full band, side {i % 2}", g, want[i % 2])
+              for i, g in enumerate(got))
+    del want, got
+    print(f"[11] K8 == plain on the timed inputs (full_16dir's two sides, "
+          f"the full band, the kernel's call and the _dense_cc stage): "
+          f"{TOL}, max abs err {err}", flush=True)
+    ms = _event_ms(k8(cuda_cost.cost_volume, out=out), 10)
+    stage_ms = _event_ms(stage, 10)
+    plain = _event_ms(k8(cuda_cost.cost_volume_plain), 2)
+    # both sides: the (H, W, L) volume written once, both images and
+    # both windows read once; per cell 3 channels of subtract, abs and
+    # add and the minimum with tmax
+    bound = _bound(2 * (H * W * L + 2 * H * W * 3 + 2 * H * W) * 4,
+                   2 * H * W * L * 10)
+    print(f"[11] pointwise_volume (K8, the finished volume): {ms:.4f} ms "
+          f"for full_16dir's two sides, the _dense_cc stage {stage_ms:.4f} "
+          f"ms, plain {plain:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}):"
+          f" {bound[0] / ms:.1%} of it ({H}x{W}x3, L={L}) on {card}",
+          flush=True)
+    # no single PyTorch call computes a shifted-window distance volume
+    return (ms, plain, None, bound), err
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--dist-worker"]:
         return _dist_worker(int(argv[1]), 2, argv[2], argv[3])
     if argv[:1] == ["--k4-launches"]:
         return _k4_launch_worker()
+    if argv[:1] == ["--k2k8-launches"]:
+        return _k2k8_launch_worker()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--data", default=os.path.join(REPO, "data"),
                     help="directory with fountain23-im{L,R}.png (optional)")
@@ -1036,10 +1278,10 @@ def main(argv=None) -> int:
     from mgm_tpu_torch.runner import tiled_disparity
     from mgm_tpu_torch.stereo import compute_disparity_batch
     from mgm_tpu_torch.mrf import solve_mrf
-    from mgm_tpu_torch.ops import _build, cuda_cost, cuda_fused, fused
+    from mgm_tpu_torch.ops import _build, cuda_fused, fused
     from mgm_tpu_torch.ops import aggregate as agg
     from mgm_tpu_torch.ops import wavefront as wf
-    from mgm_tpu_torch.ops.cost import _bt_aux, build_cost_volume
+    from mgm_tpu_torch.ops.cost import build_cost_volume
     from mgm_tpu_torch.parallel.fused_shard import BLOCK
     from mgm_tpu_torch.synthetic import synthetic_mrf, synthetic_pair
 
@@ -1081,10 +1323,16 @@ def main(argv=None) -> int:
         raise AssertionError(f"K1 launched {k1_dev} device kernels in "
                              f"{got['fused_wavefront']} calls")
 
-    # ---- 5. K1 and K2 at cfg1's full shape ---------------------------
-    # (phase 15 times them at cfg2, the numbers of the kernels' record)
+    # ---- 5. K1 and K2 at cfg1's full shape; K2's time at cfg1 ---------
+    # (phase 15 times K1 and K2 + taps at cfg2: K1's record)
     _fused_check("5", (("cfg1", cfg, None),), errs, u, v, RACE_RUNS)
     ms, plain_ms, library_ms, bounds = {}, {}, {}, {}
+    inp = _k1_inputs(cfg, u, v)
+    vol, ns = _planes(cuda_fused.fused_wavefront, cfg, inp)
+    (ms["wta"], plain_ms["wta"], library_ms["wta"],
+     bounds["wta"]) = _k2_timing("5", "cfg1", vol, ns, inp["sides"], False,
+                                 card)
+    del vol, inp
 
     fl, fr = (os.path.join(args.data, f"fountain23-im{s}.png")
               for s in "LR")
@@ -1317,49 +1565,12 @@ def main(argv=None) -> int:
                  errs, *synthetic_pair(STRIP, W, DMIN, DMAX, seed=2)[:2])
 
     # ---- 11. K8 against its plain version at full width -------------
-    ut, vt = (torch.from_numpy(a).to(dev).float() for a in (u, v))
-    rng = np.random.default_rng(11)
-    words = [torch.from_numpy(rng.integers(0, 2**32, (H, W, CENSUS_WORDS),
-                                           dtype=np.uint64).astype(np.uint32)
-                              .view(np.int32)).to(dev) for _ in range(2)]
-    inputs = {"ad": (ut, vt), "sd": (ut, vt), "census": tuple(words),
-              "btad": tuple(torch.cat([a, *_bt_aux(a)], -1)
-                            for a in (ut, vt))}
-    inputs["btsd"] = inputs["btad"]
-    e11 = {}
-    for mode in cuda_cost.MODES:
-        a, b = inputs[mode]
-        e11[mode] = _compare(
-            f"K8 {mode}",
-            cuda_cost.pointwise_volume(a, b, gmin=DMIN, L=L, mode=mode),
-            cuda_cost.pointwise_volume_plain(a, b, gmin=DMIN, L=L, mode=mode))
-    errs["pointwise_volume"] = max(e11.values())
-    print(f"[11] K8 == plain at {H}x{W}, L={L}, ad/sd/btad/btsd on the "
-          f"synthetic pair, census on {CENSUS_WORDS} random words a pixel: "
-          f"{TOL}, max abs err {e11}", flush=True)
-    del inputs, words
-
-    # full_16dir's two K8 calls: ad, each side's left image against the
-    # other, 3 channels
-    def k8(fn):
-        return lambda: (fn(ut, vt, gmin=DMIN, L=L, mode="ad"),
-                        fn(vt, ut, gmin=-DMAX, L=L, mode="ad"))
-
-    ms["pointwise_volume"] = _event_ms(k8(cuda_cost.pointwise_volume), 10)
-    plain_ms["pointwise_volume"] = _event_ms(
-        k8(cuda_cost.pointwise_volume_plain), 2)
-    # no single PyTorch call computes a shifted-window distance volume
-    library_ms["pointwise_volume"] = None
-    # both sides: the (H, W, L) float volume written once, both images
-    # read once; per cell 3 channels of subtract, abs and add
-    bounds["pointwise_volume"] = _bound(2 * (H * W * L + 2 * H * W * 3) * 4,
-                                        2 * H * W * L * 9)
-    print(f"[11] pointwise_volume: {ms['pointwise_volume']:.3f} ms, plain "
-          f"{plain_ms['pointwise_volume']:.3f} ms, bound "
-          f"{bounds['pointwise_volume'][0]:.3f} ms "
-          f"({bounds['pointwise_volume'][1]}) for full_16dir's two ad calls "
-          f"({H}x{W}x3, L={L}) on {card}", flush=True)
-    del ut, vt
+    k8e = _k8_check(u, v, d_true, dev)
+    k8r, k8t = _k8_timing(u, v, card)
+    errs["pointwise_volume"] = max(k8e, k8t)
+    for d, part in zip((ms, plain_ms, library_ms, bounds), k8r):
+        d["pointwise_volume"] = part
+    _k2k8_launches()
 
     # ---- 12./13. full_16dir and cfg1_tsgm4 end to end ----------------
     rows = {"full_16dir": ("12", _fast_ad(ndir=16),
@@ -1397,16 +1608,21 @@ def main(argv=None) -> int:
               f"on {card}", flush=True)
         del inp
 
-    # ---- 15. K1 and K2 (+ taps) at cfg2's and cfg4's full shapes ------
+    # ---- 15. K1 and K2 (+ taps) at cfg2's full shape, cfg4's strip --
     # cfg2: census 3x3 (one word a pixel), FH, ndir 8, TSGM 3: A/B at
     # slope 2 and V; these are the kernels' record's times and bounds.
     # cfg4: AD on 3 sobel-x channels truncated at 63*3, FH.
     k1k2 = _fused_timing("15", "cfg2", cfg2, u, v, errs, card)
     for d, part in zip((ms, plain_ms, library_ms, bounds), k1k2):
-        d.update(part)
+        d["fused_wavefront"] = part["fused_wavefront"]
+    k2_cfg2 = {"ms": k1k2[0]["wta"], "plain_ms": k1k2[1]["wta"],
+               "bound_ms": k1k2[3]["wta"][0], "bound_by": k1k2[3]["wta"][1],
+               "library_ms": k1k2[2]["wta"]}
     torch.cuda.empty_cache()
+    # cfg4 on the strip: at the full shape its plain run alone takes
+    # about 46 s, and cfg2 already holds the full shape's groups
     cfg4 = get_preset("sobelx_tl", dmin=DMIN, dmax=DMAX, test_lr=True)
-    _fused_check("15", (("cfg4", cfg4, None),), errs, u, v)
+    _fused_check("15", (("cfg4", cfg4, None),), errs, *strip)
     torch.cuda.empty_cache()
 
     # ---- 16. K1 and K2 with BT costs and with edge weights -----------
@@ -1685,7 +1901,7 @@ def main(argv=None) -> int:
     # counted in a process of its own: late in this one torch.profiler
     # reported 101-103 of the 124 kernels on the H100, in fresh processes
     # every one
-    rec = _k4_launches_process()
+    rec = _launches_process("--k4-launches")
     print(f"[24] K4's device kernel launches in cfg1's sharded recursion "
           f"over 2 ranks, in a process of its own (torch.profiler): "
           f"{rec['device']} (one a block: {rec['calls']} wrapper calls; "
@@ -1770,7 +1986,8 @@ def main(argv=None) -> int:
          "ms": ms[n], "plain_ms": plain_ms[n], "bound_ms": bounds[n][0],
          "bound_by": bounds[n][1], "library_ms": library_ms[n],
          **({"absorbed_into": "mgm_tpu_torch/csrc/wavefront.cu"}
-            if n in ABSORBED else {})}
+            if n in ABSORBED else {}),
+         **({"cfg2_taps": k2_cfg2} if n == "wta" else {})}
         for n in src]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

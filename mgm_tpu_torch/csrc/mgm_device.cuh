@@ -43,42 +43,40 @@ __device__ __forceinline__ float bt_term(int mode, float il, float umin,
   return mode == MGM_COST_BTSD ? bt * bt : bt;
 }
 
-// Raw cost of one (pixel, label) pair (mgm_costvolume.h:19-133): the
-// left image's pixel at element offset `up`, the right image's at `vp`,
-// nch channels each.  ad/sd: the channels' terms summed left to right;
-// census (int32 words): popcount of the XOR'd words times inv_nw =
-// 1/nwords; btad/btsd: the terms of the [I, Imin, Imax] channel blocks
-// (nch = 3 * channels) summed left to right.  K1 sums the same terms in
-// the same order for a warp's labels at once (csrc/fused_wavefront.cu
-// slot_costs).
-__device__ __forceinline__ float pointwise_cost(int mode, const void* left,
-                                                const void* right, size_t up,
-                                                size_t vp, int nch,
-                                                float inv_nw) {
-  float acc = 0.f;
-  if (mode == MGM_COST_CENSUS) {
-    const unsigned* u = (const unsigned*)left + up;
-    const unsigned* v = (const unsigned*)right + vp;
+// Raw cost of one (pixel, label) pair (mgm_costvolume.h:19-133), the
+// family MODE and channel count NCH fixed at compile time (NCH 0: `nch`
+// at run time): the left pixel's channels at u[0 .. nch), the right
+// pixel's at v[c * vstride].  ad/sd: the channels' terms summed left to
+// right; census (T unsigned words): popcount of the XOR'd words times
+// inv_nw = 1/nwords; btad/btsd: the terms of the [I, Imin, Imax]
+// channel blocks (nch = 3 * channels) summed left to right.  K8 reads it
+// from shared memory; K1 sums the same terms in the same order for a
+// warp's labels at once (csrc/fused_wavefront.cuh slot_costs).
+template <int MODE, int NCH, typename T>
+__device__ __forceinline__ float pair_cost(const T* u, const T* v,
+                                           int vstride, int nch,
+                                           float inv_nw) {
+  const int n = NCH ? NCH : nch;
+  if constexpr (MODE == MGM_COST_CENSUS) {
     int bits = 0;
-    for (int c = 0; c < nch; ++c) bits += __popc(u[c] ^ v[c]);
+#pragma unroll
+    for (int c = 0; c < n; ++c) bits += __popc(u[c] ^ v[c * vstride]);
     return (float)bits * inv_nw;
-  }
-  const float* u = (const float*)left + up;
-  const float* v = (const float*)right + vp;
-  if (mode == MGM_COST_AD || mode == MGM_COST_SD) {
-    for (int c = 0; c < nch; ++c) {
-      const float d = ad_term(mode, u[c], v[c]);
-      acc = c ? acc + d : d;
-    }
+  } else if constexpr (MODE == MGM_COST_AD || MODE == MGM_COST_SD) {
+    float acc = ad_term(MODE, u[0], v[0]);
+#pragma unroll
+    for (int c = 1; c < n; ++c) acc = acc + ad_term(MODE, u[c], v[c * vstride]);
+    return acc;
+  } else {
+    const int C = n / 3;
+    float acc = bt_term(MODE, u[0], u[C], u[2 * C], v[0], v[C * vstride],
+                        v[2 * C * vstride]);
+#pragma unroll
+    for (int c = 1; c < C; ++c)
+      acc = acc + bt_term(MODE, u[c], u[C + c], u[2 * C + c], v[c * vstride],
+                          v[(C + c) * vstride], v[(2 * C + c) * vstride]);
     return acc;
   }
-  const int C = nch / 3;
-  for (int c = 0; c < C; ++c) {
-    const float bt = bt_term(mode, u[c], u[C + c], u[2 * C + c], v[c],
-                             v[C + c], v[2 * C + c]);
-    acc = c ? acc + bt : bt;
-  }
-  return acc;
 }
 
 // SGM message of one label (mgm_core.cc:74-76,113-116): lk = Lk[l],

@@ -150,6 +150,10 @@ struct WtaParams {
   int N, nsides, nspaces, R, C, L;
   int side_gmin[MGM_MAX_SIDES], side_lo[MGM_MAX_SIDES],
       side_hi[MGM_MAX_SIDES];
+  // the launch plan (ops/cuda_fused.k2_plan): pixels a run (a multiple
+  // of 4 dividing 256, at most 64), shared-memory stages, and dynamic
+  // shared memory bytes a CTA
+  int run, stages, smem;
 };
 
 // Pointwise cost families of K1 and K8 (the order of cuda_cost.MODES).
@@ -159,12 +163,19 @@ struct WtaParams {
 #define MGM_COST_BTAD 3
 #define MGM_COST_BTSD 4
 
-// Raw pointwise cost volume of one image pair (K8).
+// The finished dense cost volume of one image pair (K8): raw costs, the
+// truncation, the label windows and the all-invalid rule in one pass.
 struct CostParams {
   const void* left;    // (H, W, nch) float32, or int32 census words
   const void* right;   // the same for the right image
+  const int* lo;       // (H, W) label windows
+  const int* hi;
   float* out;          // (H, W, L), labels fastest
   int H, W, L, nch;    // nch: channels; BT: 3 blocks [I, Imin, Imax]
   int gmin, mode;      // disparity of label 0; MGM_COST_*
   float inv_nw;        // census: 1 / nch
+  float tmax;          // the truncation (and the cost off the image)
+  // the launch plan (ops/cuda_cost.k8_plan): pixels a CTA's run, and
+  // dynamic shared memory bytes a CTA
+  int tx, smem;
 };

@@ -55,6 +55,12 @@ def shifted_cols(a_pad, left: int, gmin: int, l: int, W: int):
     return a_pad.narrow(1, left + gmin + l, W)
 
 
+def window_mask(lo, hi, L):
+    """(..., H, W) int windows -> (..., H, W, L) bool mask."""
+    l_idx = torch.arange(L, dtype=torch.int32, device=lo.device)
+    return (l_idx >= lo[..., None]) & (l_idx <= hi[..., None])
+
+
 def chsum(d: torch.Tensor) -> torch.Tensor:
     """Sum over the last (channel) axis, left to right."""
     out = d[..., 0]

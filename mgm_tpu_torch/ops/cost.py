@@ -10,26 +10,23 @@ Implements the builder semantics of mgm_costvolume.h:337-424 on dense
 Cost functions (mgm_costvolume.h:19-165): ad, sd, census (on packed
 codes), ncc (clipped, x64), btad, btsd.
 
-NCC is tensor code here, as in the JAX module.  The other families go
-through K8 (ops/cuda_cost.py, the counterpart of the TPU kernel
-pallas_cost.pointwise_volume).  Channel sums run left to right,
-divisions are true divisions by 0-dim tensors on the operands' device
-and square roots are correctly rounded (common.sqrt_rn), so CUDA and
-CPU agree bit for bit.
+NCC is tensor code here, as in the JAX module, finished by the tail
+the other families share (cuda_cost.finish_volume).  The other
+families go through K8 (ops/cuda_cost.cost_volume, the counterpart of
+the TPU kernel pallas_cost.pointwise_volume and of the tail XLA fused
+onto it), which writes the finished volume in one pass.  Channel sums
+run left to right, divisions are true divisions by 0-dim tensors on
+the operands' device and square roots are correctly rounded
+(common.sqrt_rn), so CUDA and CPU agree bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
 from .common import (INF, chsum, fmin3, pad_cols, shift_fill, shifted_cols,
-                     sqrt_rn)
-from .cuda_cost import MODES, pointwise_volume
-
-
-def window_mask(lo, hi, L):
-    """(..., H, W) int windows -> (..., H, W, L) bool mask."""
-    l_idx = torch.arange(L, dtype=torch.int32, device=lo.device)
-    return (l_idx >= lo[..., None]) & (l_idx <= hi[..., None])
+                     sqrt_rn, window_mask)
+from .cuda_cost import (MODES, cost_volume, finish_volume,
+                        pointwise_volume_plain)
 
 
 def _bt_aux(a):
@@ -61,18 +58,31 @@ def pointwise_costs(u, v, gmin: int, L: int, distance: str, ncc_win: int):
     """Raw per-(pixel,label) matching costs, before truncation/masking.
 
     u, v: (H, W, C) preprocessed images (census: the packed words as
-    int32).  Label l matches
-    column x + gmin + l.  Returns (H, W, L) float32.  Every family but
-    NCC goes through K8 (cuda_cost.pointwise_volume), BT with its
-    [I, Imin, Imax] channel blocks built here, as in the JAX module."""
+    int32).  Label l matches column x + gmin + l.  Returns (H, W, L)
+    float32.  Every family but NCC is K8's plain raw costs
+    (cuda_cost.pointwise_volume_plain), BT with its [I, Imin, Imax]
+    channel blocks built here, as in the JAX module; they run on the
+    CPU only (on a GPU K8 writes the finished volume,
+    build_cost_volume)."""
     if distance == "ncc":
         return _ncc_costs(u, v, gmin, L, ncc_win)
     if distance not in MODES:
         raise ValueError(f"unknown distance {distance}")
+    if u.device.type != "cpu":
+        raise ValueError(f"pointwise_costs: the raw {distance} costs are "
+                         f"the CPU's; on device {u.device} build_cost_volume "
+                         f"runs K8")
+    u, v = _bt_blocks(u, v, distance)
+    return pointwise_volume_plain(u, v, gmin=gmin, L=L, mode=distance)
+
+
+def _bt_blocks(u, v, distance):
+    """BT's [I, Imin, Imax] channel blocks of both images; the images as
+    they are for the other families."""
     if distance in ("btad", "btsd"):
         u = torch.cat([u, *_bt_aux(u)], -1)
         v = torch.cat([v, *_bt_aux(v)], -1)
-    return pointwise_volume(u, v, gmin=gmin, L=L, mode=distance)
+    return u, v
 
 
 def _ncc_costs(u, v, gmin, L, win, block: int = 8):
@@ -117,23 +127,21 @@ def _ncc_costs(u, v, gmin, L, win, block: int = 8):
 
 
 def build_cost_volume(u, v, lo, hi, gmin: int, *, distance: str, L: int,
-                      trunc_dist: float, ncc_win: int = 3):
+                      trunc_dist: float, ncc_win: int = 3, out=None):
     """Dense (H, W, L) float32 cost volume.
 
     u, v: preprocessed images (H, W, C); lo/hi: (H, W) int32 label
-    windows; gmin: int, disparity of label 0."""
-    H, W, C = u.shape
-    dev = u.device
-    tmax = torch.tensor(trunc_dist * C, dtype=torch.float32, device=dev)
-    d = gmin + torch.arange(L, dtype=torch.int32, device=dev)
-    qx = torch.arange(W, dtype=torch.int32, device=dev)[:, None] + d[None, :]
-    valid_q = (qx >= 0) & (qx < W)
-
-    e = pointwise_costs(u, v, gmin, L, distance, ncc_win)
-    e = torch.where(valid_q[None], e, tmax)
-    e = torch.minimum(e, tmax)
-
-    in_win = window_mask(lo, hi, L)
-    allinvalid = ~(in_win & torch.isfinite(e)).any(-1, keepdim=True)
-    e = torch.where(allinvalid, 0.0, e)
-    return torch.where(in_win, e, INF).to(torch.float32)
+    windows; gmin: int, disparity of label 0; out: an (H, W, L) float32
+    tensor to write it into (a slice of a stack of volumes), or None.
+    The pointwise families are one K8 call (cuda_cost.cost_volume);
+    NCC is tensor code finished by cuda_cost.finish_volume."""
+    tmax = trunc_dist * u.shape[-1]
+    if distance == "ncc":
+        vol = finish_volume(_ncc_costs(u, v, gmin, L, ncc_win), lo, hi,
+                            gmin, tmax)
+        return vol if out is None else out.copy_(vol)
+    if distance not in MODES:
+        raise ValueError(f"unknown distance {distance}")
+    u, v = _bt_blocks(u, v, distance)
+    return cost_volume(u, v, lo, hi, gmin=gmin, L=L, mode=distance,
+                       tmax=tmax, out=out)

@@ -1,23 +1,30 @@
-"""K8, the pointwise cost volume (counterpart of mgm_tpu/ops/pallas_cost.py).
+"""K8, the dense cost volume (counterpart of mgm_tpu/ops/pallas_cost.py
+and of the elementwise tail of mgm_tpu/ops/cost.build_cost_volume).
 
 This module holds the kernel's ctypes binding, its wrapper, its plain
 PyTorch version and a launch counter:
 
-  K8 `pointwise_volume` (csrc/cost.cu) replaces pallas_cost._kernel:
-     the raw (H, W, L) cost of every pixel and label for ad, sd, census
-     (popcount of the XOR'd packed words x 1/nwords) and btad/btsd (from
-     [I, Imin, Imax] channel blocks, which ops/cost.py builds first, as
-     the JAX module does).  Label l reads the right image's column
-     x + gmin + l clamped to the image, as the TPU's edge-padded slice.
+  K8 `cost_volume` (csrc/cost.cu) replaces pallas_cost._kernel and the
+     tail that XLA fused onto it: the finished (H, W, L) volume of
+     build_cost_volume for ad, sd, census (popcount of the XOR'd packed
+     words x 1/nwords) and btad/btsd (from [I, Imin, Imax] channel
+     blocks, which ops/cost.py builds first, as the JAX module does),
+     in one pass.  Label l reads the right image's column x + gmin + l
+     clamped to the image, as the TPU's edge-padded slice; a label off
+     the image costs tmax, costs are truncated at tmax (NaN kept), a
+     pixel whose window holds no finite cost is 0 there, and labels
+     outside the window are +inf.  The kernel writes into a caller's
+     slice of a stack of volumes (`out`).
 
-The cost of one pixel pair is `pointwise_cost`, the plain version of
-csrc/mgm_device.cuh's device function of that name; K1 computes the
-same function in flight (ops/cuda_fused.py), so both kernels and both
-plain versions share one definition each.
+The plain version is the composition the JAX module spells out:
+`pointwise_volume_plain` (the raw costs) and `finish_volume` (the
+tail, which the NCC volume also takes).  The cost of one pixel pair is
+`pointwise_cost`, the plain version of csrc/mgm_device.cuh's pair_cost;
+K1 computes the same terms in flight (ops/cuda_fused.py).
 
-The volume comes out as (H, W, L), labels fastest, which
-build_cost_volume and the dense solver read; the TPU's (L, W, H)
-layout and the transposes around it are not carried over.
+The volume comes out as (H, W, L), labels fastest, which the dense
+solver reads; the TPU's (L, W, H) layout and the transposes around it
+are not carried over.
 
 K8 is a fused elementwise pass, which Triton could write.  It is CUDA
 C++ all the same: every kernel of the port lives in the one
@@ -30,24 +37,31 @@ counts kernel launches (never plain runs).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
 import torch
 
 from . import _build
-from .common import chsum, fmin3, pad_cols, shifted_cols
+from .common import INF, chsum, fmin3, pad_cols, shifted_cols, window_mask
+from .wavefront import SMEM_PER_CTA
 
 # the families of csrc/mgm_kernels.h (MGM_COST_*), in its order
 MODES = ("ad", "sd", "census", "btad", "btsd")
+K8_OUT_WORDS = 10240    # K8 sizes a run's output span to about this many
+K8_MAX_RUN = 64         # floats, 4 to 64 pixels (k8_plan)
+
+K8Plan = collections.namedtuple("K8Plan", "tx smem")
 
 
 class _CostParams(ctypes.Structure):
     _fields_ = (
-        [(f, ctypes.c_void_p) for f in ("left", "right", "out")]
+        [(f, ctypes.c_void_p) for f in ("left", "right", "lo", "hi", "out")]
         + [(f, ctypes.c_int) for f in ("H", "W", "L", "nch", "gmin",
                                        "mode")]
-        + [("inv_nw", ctypes.c_float)])
+        + [(f, ctypes.c_float) for f in ("inv_nw", "tmax")]
+        + [(f, ctypes.c_int) for f in ("tx", "smem")])
 
 
 @functools.cache
@@ -55,15 +69,33 @@ def _lib() -> ctypes.CDLL:
     """The kernel library with K8's entry point typed and its parameter
     struct checked against the C layout."""
     lib = _build.load()
-    lib.mgm_pointwise_volume.argtypes = [ctypes.POINTER(_CostParams),
-                                         ctypes.c_void_p]
-    lib.mgm_pointwise_volume.restype = ctypes.c_int
+    lib.mgm_cost_volume.argtypes = [ctypes.POINTER(_CostParams),
+                                    ctypes.c_void_p]
+    lib.mgm_cost_volume.restype = ctypes.c_int
     lib.mgm_cost_params_size.restype = ctypes.c_int
     if lib.mgm_cost_params_size() != ctypes.sizeof(_CostParams):
-        raise RuntimeError(f"mgm_pointwise_volume: C struct is "
+        raise RuntimeError(f"mgm_cost_volume: C struct is "
                            f"{lib.mgm_cost_params_size()} bytes, the ctypes "
                            f"mirror {ctypes.sizeof(_CostParams)}")
     return lib
+
+
+def k8_plan(L: int, nch: int) -> K8Plan:
+    """K8's launch plan: a CTA's run of `tx` pixels (a multiple of 4 from
+    4 to K8_MAX_RUN, its output span about K8_OUT_WORDS floats) and its
+    shared memory (csrc/cost.cu k8_words: the output span staged with 4
+    words of room for its offset from a 16-byte boundary, the right
+    columns the run reads, its left pixels and each pixel's lo and hi),
+    a pure function of (L, nch).  tx is a multiple of the kernel's
+    K8_PX = 4 pixels a warp."""
+    if L < 1 or nch < 1:
+        raise ValueError(f"k8_plan: L {L}, {nch} channels")
+    tx = max(4, min(K8_MAX_RUN, K8_OUT_WORDS // L // 4 * 4))
+    words = ((tx * L + 4 + 3) & ~3) + nch * (tx + L - 1) + tx * nch + 2 * tx
+    if 4 * words > SMEM_PER_CTA:
+        raise ValueError(f"k8_plan: L {L} x {nch} channels needs "
+                         f"{4 * words} bytes of shared memory a CTA")
+    return K8Plan(tx=tx, smem=4 * words)
 
 
 def _popcount32(x):
@@ -120,45 +152,96 @@ def pointwise_volume_plain(u, v, *, gmin: int, L: int, mode: str):
                         for l in range(L)], -1)
 
 
-def pointwise_volume(u, v, *, gmin: int, L: int, mode: str):
-    """K8: the raw (H, W, L) cost volume (arguments as in
-    pointwise_volume_plain).  CPU tensors take the plain version; CUDA
-    tensors launch csrc/cost.cu, one thread per (pixel, label)."""
+def finish_volume(e, lo, hi, gmin: int, tmax: float):
+    """build_cost_volume's tail on the raw (H, W, L) costs `e`
+    (mgm_costvolume.h:337-424): tmax where x + gmin + l lies off the
+    image, the NaN-keeping minimum with tmax, 0 for every label of a
+    pixel whose [lo, hi] window ((H, W) int32) holds no finite cost,
+    +inf outside the window.  K8 does it in its one pass; the NCC volume
+    takes it as tensor code."""
+    H, W, L = e.shape
+    dev = e.device
+    tmax = torch.tensor(tmax, dtype=torch.float32, device=dev)
+    d = gmin + torch.arange(L, dtype=torch.int32, device=dev)
+    qx = torch.arange(W, dtype=torch.int32, device=dev)[:, None] + d[None, :]
+    valid_q = (qx >= 0) & (qx < W)
+    e = torch.where(valid_q[None], e, tmax)
+    e = torch.minimum(e, tmax)
+    in_win = window_mask(lo, hi, L)
+    allinvalid = ~(in_win & torch.isfinite(e)).any(-1, keepdim=True)
+    e = torch.where(allinvalid, 0.0, e)
+    return torch.where(in_win, e, INF).to(torch.float32)
+
+
+def cost_volume_plain(u, v, lo, hi, *, gmin: int, L: int, mode: str,
+                      tmax: float):
+    """Plain PyTorch version of K8: the raw costs (pointwise_volume_plain)
+    finished by finish_volume.  u, v: (H, W, Ck) images as
+    pointwise_cost takes them; lo, hi: (H, W) int32 label windows;
+    tmax: the truncation.  Returns the (H, W, L) float32 volume."""
+    return finish_volume(pointwise_volume_plain(u, v, gmin=gmin, L=L,
+                                                mode=mode),
+                         lo, hi, gmin, tmax)
+
+
+def cost_volume(u, v, lo, hi, *, gmin: int, L: int, mode: str,
+                tmax: float, out=None):
+    """K8: the finished (H, W, L) cost volume (arguments as in
+    cost_volume_plain), written into `out` (a contiguous (H, W, L)
+    float32 tensor, e.g. a slice of a stack of volumes) when given.
+    CPU tensors take the plain version; CUDA tensors launch
+    csrc/cost.cu, a CTA a run of k8_plan(L, Ck).tx pixels."""
     dev = u.device
-    if mode == "census" and (u.dtype != torch.int32
-                             or v.dtype != torch.int32):
-        raise ValueError(f"pointwise_volume: census words must be int32, "
-                         f"got {u.dtype} and {v.dtype}")
-    if dev.type == "cpu":
-        return pointwise_volume_plain(u, v, gmin=gmin, L=L, mode=mode)
-    if dev.type != "cuda":
-        raise ValueError(f"pointwise_volume: unsupported device {dev}")
     if mode not in MODES:
         raise ValueError(f"unknown distance {mode}")
+    if mode == "census" and (u.dtype != torch.int32
+                             or v.dtype != torch.int32):
+        raise ValueError(f"cost_volume: census words must be int32, "
+                         f"got {u.dtype} and {v.dtype}")
+    if dev.type == "cpu":
+        vol = cost_volume_plain(u, v, lo, hi, gmin=gmin, L=L, mode=mode,
+                                tmax=tmax)
+        return vol if out is None else out.copy_(vol)
+    if dev.type != "cuda":
+        raise ValueError(f"cost_volume: unsupported device {dev}")
     if u.ndim != 3 or u.shape != v.shape or v.device != dev:
-        raise ValueError(f"pointwise_volume: want two (H, W, C) tensors of "
+        raise ValueError(f"cost_volume: want two (H, W, C) tensors of "
                          f"one shape on {dev}, got {tuple(u.shape)} on "
                          f"{u.device} and {tuple(v.shape)} on {v.device}")
     H, W, nch = u.shape
     if mode != "census" and (u.dtype != torch.float32
                              or v.dtype != torch.float32):
-        raise ValueError(f"pointwise_volume: want float32 images, got "
+        raise ValueError(f"cost_volume: want float32 images, got "
                          f"{u.dtype} and {v.dtype}")
     if mode in ("btad", "btsd") and nch % 3:
-        raise ValueError(f"pointwise_volume: BT needs [I, Imin, Imax] "
+        raise ValueError(f"cost_volume: BT needs [I, Imin, Imax] "
                          f"blocks, got {nch} channels")
-    u, v = u.contiguous(), v.contiguous()
-    out = torch.empty((H, W, L), dtype=torch.float32, device=dev)
+    for name, t in (("lo", lo), ("hi", hi)):
+        if (t.shape != (H, W) or t.dtype != torch.int32
+                or t.device != dev):
+            raise ValueError(f"cost_volume: want an ({H}, {W}) int32 {name} "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if out is None:
+        out = torch.empty((H, W, L), dtype=torch.float32, device=dev)
+    elif (out.shape != (H, W, L) or out.dtype != torch.float32
+          or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"cost_volume: want a contiguous ({H}, {W}, {L}) "
+                         f"float32 out on {dev}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    plan = k8_plan(L, nch)
+    u, v, lo, hi = (t.contiguous() for t in (u, v, lo, hi))
     p = _CostParams(left=u.data_ptr(), right=v.data_ptr(),
-                    out=out.data_ptr(), H=H, W=W, L=L, nch=nch, gmin=gmin,
-                    mode=MODES.index(mode), inv_nw=1.0 / nch)
-    err = _lib().mgm_pointwise_volume(ctypes.byref(p),
-                                      torch.cuda.current_stream(
-                                          dev).cuda_stream)
+                    lo=lo.data_ptr(), hi=hi.data_ptr(), out=out.data_ptr(),
+                    H=H, W=W, L=L, nch=nch, gmin=gmin,
+                    mode=MODES.index(mode), inv_nw=1.0 / nch, tmax=tmax,
+                    **plan._asdict())
+    err = _lib().mgm_cost_volume(ctypes.byref(p),
+                                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"pointwise_volume: CUDA error {err}")
-    pointwise_volume.launches += 1
+        raise RuntimeError(f"cost_volume: CUDA error {err}")
+    cost_volume.launches += 1
     return out
 
 
-pointwise_volume.launches = 0
+cost_volume.launches = 0

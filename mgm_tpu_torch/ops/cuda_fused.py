@@ -15,7 +15,10 @@ plain PyTorch version and a launch counter:
      waiting only for its neighbour rows' counts of finished fronts.
   K2 `wta` (csrc/wta.cu) replaces pallas_fused._wta_kernel: the sum of
      the spaces, the windowed winner-take-all and optionally the four
-     S taps of the subpixel fits, for a batch of pairs.
+     S taps of the subpixel fits, for a batch of pairs: persistent CTAs
+     walk runs of consecutive pixels (`k2_plan`), each run's span of
+     every space brought into a ring of shared-memory stages by bulk
+     copies, summed there and scanned by a group of lanes a pixel.
   K4 `fused_block` (csrc/fused_block.cu) replaces
      pallas_fused._block_kernel: G scan steps of one K1 launch on one
      rank's band of rows under row sharding (parallel/fused_shard.py),
@@ -80,6 +83,8 @@ BANDS_PER_CTA = 2          # K1's bands a CTA (k1_plan) ...
 LONG_SHARE = 80            # ... twice that from this many rows a CTA
 SHARE_CAP = 96             # a one-cluster unit's CTAs: one a 96 rows
 SPREAD_SMEM = 120_000      # shared memory that leaves a CTA its own SM
+K2_RUNS = (32, 16, 8, 4)   # K2's pixels a run: the largest whose ...
+K2_STAGES = 2              # ... stages fit a CTA (k2_plan)
 
 
 class _WaveParams(ctypes.Structure):
@@ -126,7 +131,8 @@ class _WtaParams(ctypes.Structure):
         + [(f, ctypes.c_int) for f in ("N", "nsides", "nspaces", "R", "C",
                                        "L")]
         + [(f, ctypes.c_int * MAX_SIDES)
-           for f in ("side_gmin", "side_lo", "side_hi")])
+           for f in ("side_gmin", "side_lo", "side_hi")]
+        + [(f, ctypes.c_int) for f in ("run", "stages", "smem")])
 
 
 @functools.cache
@@ -794,6 +800,32 @@ def bind_block(kernel, left, right, out, hist, mins, *, share=1, **kw):
 
 # ---------------------------------------------------------------- K2 ----
 
+K2Plan = collections.namedtuple("K2Plan", "run stages smem")
+
+
+def k2_bytes(run: int, stages: int, nspaces: int, L: int) -> int:
+    """Shared memory of a K2 CTA (csrc/wta.cu k2_bytes): two mbarriers
+    a stage, `stages` stages of nspaces spans of run * L floats (3 words
+    of room for a span's offset from a 16-byte boundary, rounded up to
+    16 bytes), and the table of sums, a row of L | 1 words a pixel."""
+    span = (run * L + 3 + 3) & ~3
+    return 16 * stages + 4 * (stages * nspaces * span + run * (L | 1))
+
+
+def k2_plan(L: int, nspaces: int) -> K2Plan:
+    """K2's launch plan: the largest run of K2_RUNS pixels whose
+    K2_STAGES stages and table of sums fit a CTA's SMEM_PER_CTA bytes; a
+    pure function of (L, nspaces)."""
+    if not 1 <= L <= MAX_LABELS or not 1 <= nspaces <= 5:
+        raise ValueError(f"k2_plan: L {L}, {nspaces} spaces")
+    for run in K2_RUNS:
+        smem = k2_bytes(run, K2_STAGES, nspaces, L)
+        if smem <= SMEM_PER_CTA:
+            return K2Plan(run=run, stages=K2_STAGES, smem=smem)
+    raise ValueError(f"k2_plan: L {L} x {nspaces} spaces needs more than "
+                     f"{SMEM_PER_CTA} bytes of shared memory")
+
+
 def wta_plain(vol, *, nspaces, sides, npair=1, want_taps=False):
     """Plain PyTorch version of K2 (pallas_fused.py:211-240).
 
@@ -830,7 +862,9 @@ def wta_plain(vol, *, nspaces, sides, npair=1, want_taps=False):
 def wta(vol, *, nspaces, sides, npair=1, want_taps=False):
     """K2: sum of the spaces + windowed WTA (+ the taps), arguments and
     results as in wta_plain.  CPU tensors take the plain version; CUDA
-    tensors launch csrc/wta.cu."""
+    tensors launch csrc/wta.cu: persistent CTAs walk runs of
+    k2_plan(L, nspaces).run pixels, their spans brought into shared
+    memory by bulk copies."""
     dev = vol.device
     if dev.type == "cpu":
         return wta_plain(vol, nspaces=nspaces, sides=sides, npair=npair,
@@ -844,6 +878,7 @@ def wta(vol, *, nspaces, sides, npair=1, want_taps=False):
                          f"{tuple(vol.shape)}")
     _, R, C, L = vol.shape
     _check("vol", vol, (nspaces * N, R, C, L), dev)
+    plan = k2_plan(L, nspaces)
     disp = torch.empty((N, R, C), dtype=torch.float32, device=dev)
     cost = torch.empty((N, R, C), dtype=torch.float32, device=dev)
     taps = (torch.empty((N, R, 4, C), dtype=torch.float32, device=dev)
@@ -851,7 +886,8 @@ def wta(vol, *, nspaces, sides, npair=1, want_taps=False):
     p = _WtaParams(vol=vol.data_ptr(), disp=disp.data_ptr(),
                    cost=cost.data_ptr(),
                    taps=None if taps is None else taps.data_ptr(), N=N,
-                   nsides=ns, nspaces=nspaces, R=R, C=C, L=L)
+                   nsides=ns, nspaces=nspaces, R=R, C=C, L=L,
+                   **plan._asdict())
     for n, (gmin, lo, hi) in enumerate(sides):
         p.side_gmin[n], p.side_lo[n], p.side_hi[n] = gmin, lo, hi
     err = _lib().mgm_wta(ctypes.byref(p), _stream(dev))

@@ -310,15 +310,17 @@ def _bt_aux_batch(a):
 def _dense_cc(ups, vps, *, sides, L: int, mode: str, trunc_dist: float,
               lo_px=None, hi_px=None):
     """(N, H, W, L) dense cost volumes of each side of each pair
-    (through K8), for the leftover passes (fused.py:621-639), from the
+    (through K8, one launch a side, each writing its slice of the
+    stack), for the leftover passes (fused.py:621-639), from the
     (npair, H, W, nch) preprocessed images (build_cost_volume makes BT's
     blocks itself), over each side's constant window or each pixel's
     (lo_px/hi_px, (N, H, W))."""
     _, H, W, _ = ups.shape
     full = dict(dtype=torch.int32, device=ups.device)
     ns = len(sides)
-    out = []
-    for n in range(ups.shape[0] * ns):
+    out = torch.empty((ups.shape[0] * ns, H, W, L), dtype=torch.float32,
+                      device=ups.device)
+    for n in range(out.shape[0]):
         k, sd = divmod(n, ns)
         gmin, lo, hi = sides[sd]
         a, b = (ups[k], vps[k]) if sd == 0 else (vps[k], ups[k])
@@ -327,9 +329,9 @@ def _dense_cc(ups, vps, *, sides, L: int, mode: str, trunc_dist: float,
         else:
             lo_a, hi_a = torch.full((H, W), lo, **full), torch.full(
                 (H, W), hi, **full)
-        out.append(build_cost_volume(a, b, lo_a, hi_a, gmin, distance=mode,
-                                     L=L, trunc_dist=trunc_dist))
-    return torch.stack(out)
+        build_cost_volume(a, b, lo_a, hi_a, gmin, distance=mode, L=L,
+                          trunc_dist=trunc_dist, out=out[n])
+    return out
 
 
 def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, w8=None,

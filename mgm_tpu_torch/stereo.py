@@ -262,11 +262,15 @@ def _solve(us: np.ndarray, vs: np.ndarray, cfg: MGMConfig, *, device,
     dense = _dense(cfg)
     cc = None
     if dense:
-        cc = torch.stack([build_cost_volume(
-            *((u_p[k], v_p[k]) if s == 0 else (v_p[k], u_p[k])),
-            lo_idx[n], hi_idx[n], gmins[s], distance=cfg.distance, L=L,
-            trunc_dist=cfg.trunc_dist, ncc_win=cfg.census_ncc_win)
-            for n, (k, s) in enumerate(np.ndindex(K, n_sides))])
+        # each side's volume written into its slice of the stack
+        cc = torch.empty((K * n_sides, H, W, L), dtype=torch.float32,
+                         device=dev)
+        for n, (k, s) in enumerate(np.ndindex(K, n_sides)):
+            build_cost_volume(
+                *((u_p[k], v_p[k]) if s == 0 else (v_p[k], u_p[k])),
+                lo_idx[n], hi_idx[n], gmins[s], distance=cfg.distance, L=L,
+                trunc_dist=cfg.trunc_dist, ncc_win=cfg.census_ncc_win,
+                out=cc[n])
 
     s_lo, s_hi = lo_idx, hi_idx
     for it in range(cfg.iterations):

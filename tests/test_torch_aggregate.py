@@ -141,19 +141,60 @@ def _images(rng, H=10, W=16, C=3):
             rng.integers(0, 255, (H, W, C)).astype(np.float32))
 
 
-@pytest.mark.parametrize("distance", ["ad", "sd", "btad", "btsd"])
-def test_pointwise_volumes_bitwise(distance):
-    rng = np.random.default_rng(1)
+def _volume_case(case, rng):
+    """(u, v, lo, hi, distance, trunc_dist) of a build_cost_volume case
+    at L = 9, gmin = -5 on 10x16 images: each family with windows of 5
+    labels, census words, empty windows (lo > hi), windows wholly on
+    labels off the image with trunc_dist = inf (those pixels' windows
+    hold no finite cost and become 0), trunc_dist = inf, NaN pixels
+    under btad."""
     u, v = _images(rng)
-    L, gmin = 9, -5
     lo = rng.integers(0, 4, u.shape[:2]).astype(np.int32)
     hi = (lo + 4).astype(np.int32)
-    kw = dict(distance=distance, L=L, trunc_dist=60.0)
+    distance, trunc = (case if case in tcost.MODES else "ad"), 60.0
+    if case == "census":
+        u, v = (rng.integers(0, 2**32, (10, 16, 2), dtype=np.uint64)
+                .astype(np.uint32) for _ in range(2))
+    elif case == "empty windows":
+        lo[::3, ::2] = 6
+        hi[::3, ::2] = 2
+    elif case == "windows off the image":
+        # column x reads x - 5 + l: labels l < 5 - x lie off the image
+        lo[:, :4] = 0
+        hi[:, :4] = 4 - np.arange(4)
+        trunc = float("inf")
+    elif case == "trunc_dist inf":
+        trunc = float("inf")
+    elif case == "NaN pixels under btad":
+        distance = "btad"
+        u[2, 3], v[4, 7:9], u[7, 15] = np.nan, np.nan, np.nan
+    return u, v, lo, hi, distance, trunc
+
+
+@pytest.mark.parametrize("case", [
+    "ad", "sd", "btad", "btsd", "census", "empty windows",
+    "windows off the image", "trunc_dist inf", "NaN pixels under btad"])
+def test_pointwise_volumes_bitwise(case):
+    """build_cost_volume (K8's plain version: the raw costs and the tail,
+    cuda_cost.cost_volume_plain) against mgm_tpu's, bitwise."""
+    rng = np.random.default_rng(1)
+    u, v, lo, hi, distance, trunc = _volume_case(case, rng)
+    L, gmin = 9, -5
+    kw = dict(distance=distance, L=L, trunc_dist=trunc)
     want = np.asarray(jcost.build_cost_volume(
         *map(jnp.asarray, (u, v, lo, hi)), gmin, backend="xla", **kw))
-    got = tcost.build_cost_volume(*map(torch.from_numpy, (u, v, lo, hi)),
+    tu, tv = ((torch.from_numpy(a.view(np.int32)) for a in (u, v))
+              if distance == "census" else map(torch.from_numpy, (u, v)))
+    got = tcost.build_cost_volume(tu, tv, *map(torch.from_numpy, (lo, hi)),
                                   gmin, **kw).numpy()
     assert_bitwise(got, want)
+    if case == "windows off the image":
+        assert (got[:, :4][np.arange(L) <= hi[:, :4, None]] == 0).all()
+    out = torch.full((2, 10, 16, L), -1.0)
+    assert tcost.build_cost_volume(tu, tv, *map(torch.from_numpy, (lo, hi)),
+                                   gmin, out=out[1], **kw) is not None
+    assert_bitwise(out[1].numpy(), want)
+    assert (out[0] == -1.0).all()
 
 
 def test_census_costs_bitwise():

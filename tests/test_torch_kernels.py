@@ -117,6 +117,10 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         cuda_fused.wta(torch.empty((2, 4, 5, 3), device="meta"), nspaces=1,
                        sides=((0, 0, 2), (0, 0, 2)))
+    lo = torch.empty((2, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        cuda_cost.cost_volume(meta[0], meta[0], lo, lo, gmin=0, L=3,
+                              mode="ad", tmax=1.0)
     with pytest.raises(ValueError, match="device"):
         cuda_fused.fused_wavefront(
             meta, meta, torch.empty((1, 4, 5, 3), device="meta"),
@@ -140,7 +144,7 @@ def test_library_is_keyed_by_the_sources():
     assert path.parent.parent == _build.BUILD_ROOT
     assert {s.name for s in _build._sources()} >= {
         "fused_wavefront.cu", "wta.cu", "wavefront.cu", "cost.cu",
-        "mgm_kernels.h", "mgm_device.cuh"}
+        "mgm_kernels.h", "mgm_device.cuh", "smem_copy.cuh"}
 
 
 @pytest.mark.cuda
@@ -420,27 +424,93 @@ def test_item6_pipeline_cuda_equals_cpu(cuda, name, kw):
         assert_bitwise(got[k], want[k])
 
 
+def _windows(rng, H, W, L):
+    """(H, W) int32 label windows: random ones of 1-6 labels, some empty
+    (lo > hi), some wholly outside 0..L-1, and row 0's first columns on
+    label 0 (off the image where gmin < 0)."""
+    lo = rng.integers(-2, L, (H, W)).astype(np.int32)
+    hi = (lo + rng.integers(-1, 6, (H, W))).astype(np.int32)
+    lo[0, :3], hi[0, :3] = 0, 0
+    lo[1, ::4], hi[1, ::4] = L + 1, L + 3
+    return lo, hi
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("band", ["full", "mixed"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("trunc", [20.0, float("inf")])
 @pytest.mark.parametrize("mode", cuda_cost.MODES)
-@pytest.mark.parametrize("gmin,L", [(-7, 12), (-60, 151), (3, 5)])
-def test_cost_kernel_matches_plain(cuda, mode, gmin, L):
+@pytest.mark.parametrize("gmin,L", [(-7, 12), (-60, 151), (3, 5), (0, 1),
+                                    (-20, 32)])
+def test_cost_kernel_matches_plain(cuda, mode, gmin, L, trunc, offset, band):
+    """K8 (the finished volume) against its plain version: every family,
+    L from 1 to 151, the full band of labels (every cost compared, the
+    dense path's windows) and per-pixel windows (empty ones, ones off
+    the labels and off the image), NaN pixels, the truncation at inf,
+    rows of a full run of 64 pixels and a ragged one of 7, and an output
+    slice `offset` floats past a 16-byte boundary (odd H * W * L)."""
     rng = np.random.default_rng(3)
-    H, W = 13, 37
+    H, W = 13, 71
     if mode == "census":
         u, v = (rng.integers(0, 2**32, (H, W, 2), dtype=np.uint64)
                 .astype(np.uint32).view(np.int32) for _ in range(2))
     elif mode in ("btad", "btsd"):
         u, v = _bt_blocks(rng, H, W, 3), _bt_blocks(rng, H, W, 3)
+        u[2, 5], v[7, 30:33, :3] = np.nan, np.nan
     else:
         u, v = _pair(rng, H, W, 3)
-    ut, vt = torch.from_numpy(u).to(cuda), torch.from_numpy(v).to(cuda)
-    n = cuda_cost.pointwise_volume.launches
-    got = cuda_cost.pointwise_volume(ut, vt, gmin=gmin, L=L, mode=mode)
-    assert cuda_cost.pointwise_volume.launches == n + 1
-    want = cuda_cost.pointwise_volume_plain(ut, vt, gmin=gmin, L=L,
-                                            mode=mode)
+        u[4, 10] = np.nan
+    lo, hi = _windows(rng, H, W, L)
+    if band == "full":
+        lo, hi = np.zeros_like(lo), np.full_like(hi, L - 1)
+    ut, vt, lot, hit = (torch.from_numpy(a).to(cuda) for a in (u, v, lo, hi))
+    kw = dict(gmin=gmin, L=L, mode=mode, tmax=trunc * 3)
+    flat = torch.full((offset + 2 * H * W * L,), -1.0, device=cuda)
+    out = flat[offset + H * W * L:].view(H, W, L)
+    n = cuda_cost.cost_volume.launches
+    got = cuda_cost.cost_volume(ut, vt, lot, hit, out=out, **kw)
+    assert cuda_cost.cost_volume.launches == n + 1 and got is out
+    want = cuda_cost.cost_volume_plain(ut, vt, lot, hit, **kw)
     torch.cuda.synchronize()
     assert_bitwise(got.cpu().numpy(), want.cpu().numpy())
+    assert (flat[:offset + H * W * L] == -1.0).all()
+    assert_bitwise(cuda_cost.cost_volume(ut, vt, lot, hit, **kw)
+                   .cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("taps", [False, True])
+@pytest.mark.parametrize("L,nspaces,npair,R,C", [
+    (1, 1, 1, 3, 7), (5, 2, 2, 3, 5), (12, 3, 1, 5, 3), (32, 4, 3, 2, 3),
+    (151, 5, 1, 3, 5), (151, 2, 1, 17, 29), (151, 3, 2, 9, 13),
+    (151, 2, 1, 3, 11), (12, 1, 2, 1, 9), (42, 3, 8, 27, 28),
+    (1024, 5, 1, 2, 3)])
+def test_wta_kernel_matches_plain(cuda, L, nspaces, npair, R, C, taps,
+                                  offset):
+    """K2 against its plain version on random space sums with ties, NaN,
+    -inf and an all-invalid pixel: L from 1 to 1024, 1-5 spaces,
+    batches, odd R * C * L and a volume `offset` floats past a 16-byte
+    boundary (every span ragged), runs crossing rows and sides."""
+    rng = np.random.default_rng(L + nspaces + offset)
+    N = 2 * npair
+    vol = rng.integers(0, 6, (nspaces * N, R, C, L)).astype(np.float32)
+    vol[0, 0, 1, ::2] = np.nan
+    vol[-1, R - 1, C - 1, :] = np.inf
+    vol[nspaces * N // 2, 1 % R, 0, L // 2:] = -np.inf
+    sides = ((-3, 0, L - 1), (2, min(1, L - 1), max(L - 2, 0)))
+    flat = torch.empty(offset + vol.size, device=cuda)
+    vt = flat[offset:].view(vol.shape).copy_(torch.from_numpy(vol))
+    n = cuda_fused.wta.launches
+    got = cuda_fused.wta(vt, nspaces=nspaces, sides=sides, npair=npair,
+                         want_taps=taps)
+    assert cuda_fused.wta.launches == n + 1
+    want = cuda_fused.wta_plain(vt, nspaces=nspaces, sides=sides,
+                                npair=npair, want_taps=taps)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 2 + taps
+    for a, b in zip(got, want):
+        assert_bitwise(a.cpu().numpy(), b.cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -473,12 +543,12 @@ def test_presets_cuda_equal_cpu(cuda, name):
     u, v, _ = synthetic_pair(24, 40, -8, 4, seed=3)
     cfg = get_preset(name, dmin=-8, dmax=4, test_lr=True)
     n = (cuda_fused.fused_wavefront.launches, cuda_fused.wta.launches,
-         cuda_cost.pointwise_volume.launches)
+         cuda_cost.cost_volume.launches)
     got = compute_disparity(u, v, cfg, device=cuda)
     assert tuple(
         a - b for a, b in zip((cuda_fused.fused_wavefront.launches,
                                cuda_fused.wta.launches,
-                               cuda_cost.pointwise_volume.launches), n)
+                               cuda_cost.cost_volume.launches), n)
     ) == PRESET_LAUNCHES[name]
     want = compute_disparity(u, v, cfg, device="cpu")
     assert sorted(got) == sorted(want)
@@ -496,10 +566,10 @@ def test_fused_schedules_cuda_equal_cpu(cuda, ndir, mgm, k1, k8):
     cfg = MGMConfig(dmin=-8, dmax=4, ndir=ndir, mgm=mgm, distance="ad",
                     p1=8, p2=32, test_lr=True)
     n1 = cuda_fused.fused_wavefront.launches
-    n8 = cuda_cost.pointwise_volume.launches
+    n8 = cuda_cost.cost_volume.launches
     got = compute_disparity(u, v, cfg, device=cuda)
     assert cuda_fused.fused_wavefront.launches == n1 + k1
-    assert cuda_cost.pointwise_volume.launches == n8 + k8
+    assert cuda_cost.cost_volume.launches == n8 + k8
     want = compute_disparity(u, v, cfg, device="cpu")
     assert sorted(got) == sorted(want)
     for k in got:
