@@ -79,20 +79,24 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     and no skew or unskew kernel, by torch.profiler);
 13. cfg1_tsgm4 (fast_ad at TSGM 4: A and PB groups) end to end as
     phase 4, through K1 and K2;
-14. K1 and K2 against their plain versions at the full shapes of
-    full_16dir (A/B at slope 2 and V into one volume) and cfg1_tsgm4 (A
-    at slope 2 and PB): bitwise equal; then K1's time per front of each
-    group at full width: A/B at slope 2, V, PB, PA + PB, and cfg2's A/B
-    and V groups (census, FH);
-15. K1 and K2 (+ taps) against their plain versions at cfg2's full
-    shape (census_tl over -120..30: 3x3 census words, FH, ndir 8,
-    TSGM 3, A/B at slope 2 and V, both LR sides): bitwise equal, K1 in
-    each of RACE_RUNS runs; then
-    each one's time beside its plain version's, K2's beside torch.min,
-    and their bounds (K1's record; K2's `cfg2_taps`); then the same
-    check for cfg4 (sobelx_tl: AD on 3 float channels truncated at
-    63*3, FH, ndir 8, TSGM 3) on a 64-row strip, 700 wide;
-16. K1 and K2 against their plain versions on a 64-row strip, 700 wide,
+14. K1 and K2 against their plain versions for full_16dir (A/B at
+    slope 2 and V into one volume) and cfg1_tsgm4 (A at slope 2 and PB)
+    on the 64-row strip, 700 wide (at the full shape the plain K1 takes
+    15-18 s a case): bitwise equal; then K1's time
+    per front of each group at full width: A/B at slope 2, V, PB, PA +
+    PB, and cfg2's A/B and V groups (census, FH);
+15. K1 and K2 (+ taps) against their plain versions for cfg2
+    (census_tl over -120..30: 3x3 census words, FH, ndir 8, TSGM 3, A/B
+    at slope 2 and V, both LR sides) on the 64-row strip, 700 wide (at
+    the full shape the plain K1 takes about a minute), K1 in each of
+    RACE_RUNS runs, and K2 (+ taps) also at the full shape: bitwise
+    equal; then at the full shape each one's time (K1's plain time and
+    its own on the strip beside it), K2's beside its plain version's
+    and torch.min's, and their
+    bounds (K1's record; K2's `cfg2_taps`); then the same check for
+    cfg4 (sobelx_tl: AD on 3 float channels truncated at 63*3, FH,
+    ndir 8, TSGM 3) on the strip;
+16. K1 and K2 against their plain versions on the 64-row strip, 700 wide,
     L = 151: the `bt` preset (btad blocks, SGM, TSGM 2), cfg2 with
     edge weights (aP2 0.5) and fast_ad at ndir 8 with edge weights
     (SGM at TSGM 2, no update_cost2 halving): bitwise equal;
@@ -132,17 +136,21 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     MP*disp/s of scene work (2*H*W*L).
 
 24. K4 (the fused recursion on one rank's band of rows, row sharding)
-    against its plain version over in-process ranks on the one card
-    (each rank on its own stream), the whole sharded recursion held
-    bitwise, K4's run in each of RACE_RUNS runs against one plain run:
-    the A/B stagger at cfg1's full 700x500, L = 151 over 2 ranks;
-    cfg2's V group (census, FH) and cfg1_tsgm4's PB group (lockstep
-    aprons) at full shape over 2 ranks; cfg1 on a 61-row strip over 3
-    ranks (21 + 21 + 19 rows) in blocks of 4 steps (the halo ring wraps
-    many times); each also bitwise equal to K1's unsharded volume; then
-    K4's device launches in one sharded cfg1 recursion, counted by
+    over in-process ranks on the one card (each rank on its own
+    stream), K4's run in each of RACE_RUNS runs bitwise equal to K1's
+    unsharded volume: the A/B stagger (cfg1), cfg2's V group (census,
+    FH) and cfg1_tsgm4's PB group (lockstep aprons) over 2 ranks, at
+    the full 700x500, L = 151 and on a 64x256 strip, where the whole
+    sharded recursion is also held bitwise against its plain version
+    (at the full shape the plain recursion takes 10-20 s a case, and
+    K1, the same kernel body, is held against its plain version at the
+    full width in phases 2-20); cfg1
+    on a 61x256 strip over 3 ranks (21 + 21 + 19 rows) in blocks of 4
+    steps (the halo ring wraps many times) against both; then K4's
+    device launches in one sharded cfg1 recursion, counted by
     torch.profiler in a process of its own: one a call; then its time
-    for that recursion beside its plain version's and its bound;
+    for that recursion and its bound, and its time on the strip beside
+    its plain version's;
 25. the sharded path end to end: compute_disparity(mesh=make_mesh(
     devices=["cuda:0"] * n)) for cfg1 at n = 2 and 4, and cfg2,
     cfg1_tsgm4 and cfg1_mM at n = 2, every output bitwise equal to the
@@ -158,7 +166,45 @@ no JAX and nothing of mgm_tpu.  Phases, each fatal on failure:
     equal to the single-process run, and its wall;
 27. with more than one card: the in-process mesh over distinct cards
     and the NCCL group (one line saying that they were not measured
-    otherwise).
+    otherwise);
+28. K5 on a band (the dense recursion on one rank's band of canonical
+    rows, csrc/wavefront_band.cu: a block of fronts a launch, the halo
+    ring of the rank upstream, parallel/halo.py) against its plain
+    version over in-process ranks on the one card (each rank on its own
+    stream), the whole sharded recursion held bitwise in each of
+    RACE_RUNS runs, and against the unsharded K5, at L = 151 on strips
+    of 96 columns: every group kind (ndir 16: axis slope 1, diagonal
+    slope 2 and knight passes, both flow signs, row and column bands)
+    and weighted FH (mgm_o VTYPE 1) over 2 ranks on 40 rows, weighted FH
+    restricted to windows at TSGM 3 in blocks of 4 fronts over 3 ranks
+    on 20 rows, and 9 rows over 4 ranks (the last without a row); at
+    full width phase 29 holds it against the unsharded K5;
+29. ncc_mesh2: the `ncc` preset at cfg1 geometry over 2 in-process
+    ranks of the card (one-card emulation, as phase 25): every output
+    bitwise equal to the unsharded run's, through K5 on a band (K5 and
+    K1 not launched), the walls, the card's peak memory; K5-band's
+    device launches in one run, counted by torch.profiler in a process
+    of its own (one a block, no launch a front), their device time, the
+    run's wall and the card's busy share, and there each rank's peak
+    memory (the caching allocator's trace, by the stream that
+    allocated) beside the unsharded run's; the sharded recursion at
+    full width bitwise equal to the unsharded K5's, its time beside the
+    unsharded K5's and its bound (the kernels' record), its time on
+    phase 28's first strip beside its plain version's;
+30. full_16dir_mesh2: full_16dir over 2 ranks: K4 (fused groups), K8
+    (each band's volumes) and K5 on a band (knight passes), every output
+    bitwise equal to the unsharded run's;
+31. mgm_o_mesh2: parallel.solve_tiled on the mgm_o problem (700x500,
+    L = 151, NDIR 8, MGM 2, VTYPE 0 and 1) over 2 ranks: the labels
+    bitwise equal to mrf.solve_mrf's on the card, through K5 on a band.
+    Each phase prints its start time (`t = ... s`).
+
+The kernels build in a child process below this one's priority; in the
+meantime a thread here makes the plain runs of the kernel-against-plain
+checks (the card is idle then), keeps them on the host and stops when
+the build ends; the checks make the plain runs it did not reach.  A
+plain time made then says so: the compiler shares the host's cores.
+The plain times of the kernels' record are made after the build.
 
 With --data DIR holding fountain23-imL.png and fountain23-imR.png
 (default: the repository's data/), cfg1 also runs on that pair.  The
@@ -171,19 +217,25 @@ and read just after (`launches_by_path`): cfg1 (phase 4), cfg1_tsgm4
 cfg3_b32 (phase 22) and cfg3_scene (phase 23) for K1/K2, cfg1_mM and
 cfg1_mM_truth8 (phase 20) for K1, the two mgm_o runs, the NCC run
 (phases 7-8) and ncc_iter3 (phase 21) for K5, full_16dir (phase 12) for
-K1, K5 and K8, and the sharded rows (phase 25) for K4 and K2;
-`launches` is their sum.  The entries `skew` and `unskew` (the TPU's K6
+K1, K5 and K8, the sharded rows (phase 25) for K4 and K2, and the
+dense mesh rows (phases 29-31: ncc_mesh2, full_16dir_mesh2 for K4, K8
+and K5-band, the two mgm_o_mesh2 runs) for K5 on a band; `launches` is
+their sum.  The entries `skew` and `unskew` (the TPU's K6
 and K7) are absorbed into K5's addressing: no kernel of theirs exists,
 so they launch 0 times on every path K5 runs; their max_abs_err is K5's
 group checks', their `ms`, `bound_ms` and `bound_by` are null (nothing
 runs or moves for them), and `plain_ms` / `library_ms` are the plain
 skew and unskew and one strided copy at the NCC group's shapes.  K4's times and bound are the sharded cfg1
-recursion's over 2 ranks (phase 24).  One K1 call is one cluster launch
-that steps every front of its scan direction inside the kernel; one K4
+recursion's over 2 ranks (phase 24), K5-band's ncc_mesh2's sharded
+recursion's over 2 ranks (phase 29), also under the K5 record's `band`.
+K1's, K4's and K5-band's plain times are a strip's (`plain_at`), with
+the kernel's own time on that strip beside them (`strip_ms`).  One K1
+call is one cluster launch that steps every front of its scan direction inside the kernel; one K4
 call is one launch of the same kernel body on a band that steps a
 block's fronts inside the kernel; one K5 call is one launch that steps
-every front of its pass group inside the kernel; one K2 call is one
-persistent launch over runs of pixels; one K8 call is one launch a
+every front of its pass group inside the kernel; one K5-band call is
+one launch of K5's kernel on a band that steps a block's fronts; one
+K2 call is one persistent launch over runs of pixels; one K8 call is one launch a
 volume.  K1's times and bounds are cfg2's (phase 15), K2's cfg1's
 (phase 5; cfg2's with taps, phase 15, under `cfg2_taps`), K8's
 full_16dir's two sides (phase 11).  `bound_ms` is the larger of the
@@ -211,7 +263,13 @@ TOL = "bitwise (equal NaN masks, equal bits elsewhere)"
 H, W, DMIN, DMAX = 500, 700, -120, 30
 L = DMAX - DMIN + 1
 STRIP = 64                       # rows of the kernel-against-plain strip
-CROP = (slice(100, 164), slice(200, 328))  # the CUDA-against-CPU crop
+# (the main paths' full width: the width sets the fronts and how each
+# row's ring wraps).  Phase 24's K4 strips are narrower: K4 at the full
+# shape is held against K1, which is held against plain at full width.
+K4_STRIP_W = 256
+BAND_STRIP = (40, 96)            # phase 28's K5-band strips (rows, columns)
+CROP = (slice(100, 148), slice(200, 296))  # the CUDA-against-CPU crop
+BUILD_NICE = 10                  # the compiler's priority below this one's
 REPS = 5                         # timed cfg1 runs
 DENSE_REPS = 3                   # timed mgm_o / NCC runs
 HBM_BPS, F32_OPS = 3.35e12, 67e12  # H100 SXM peaks: bytes/s, FLOP/s
@@ -229,14 +287,18 @@ DENSE_KERNELS = ("wavefront_scan",)
 ABSORBED = ("skew", "unskew")
 FUSED_KERNELS = ("fused_wavefront", "wta")
 CENSUS_WORDS = 2                 # phase 11's packed census words a pixel
-NEW_REPS = 3                     # timed runs of phases 20-26
-RACE_RUNS = 5                    # K1 / K5 runs held against one plain run
+NEW_REPS = 2                     # timed runs of phases 20-31
+RACE_RUNS = 3                    # K1 / K4 / K5 runs held against one plain run
 K5_KERNEL = "wavefront_rows"     # K5's device kernel (csrc/wavefront.cu)
+K5B_KERNEL = "wavefront_rows<true"  # K5 on a band's (template flag BAND)
 K4_KERNEL = "fused_block_cluster"  # K4's (csrc/fused_wavefront.cuh)
 K8_KERNEL = "cost_volume_kernel"   # K8's (csrc/cost.cu)
 K2_KERNEL = "wta_runs"             # K2's (csrc/wta.cu)
-LAUNCH_REPS = 3                  # runs counted by the profiler, phase 11
+LAUNCH_REPS = 1                  # runs counted by the profiler, phase 11
 SHARD_KERNELS = ("fused_block", "wta")
+BAND_KERNELS = ("wavefront_band",)
+# the dense mesh rows' kernels: K5 on a band and not K5, nor K1
+DENSE_ABSENT = ("wavefront_scan", "fused_wavefront")
 # cfg3 (the satellite preset): 279x271x1 pairs, disparities -22..19
 SAT_H, SAT_W, SAT_DMIN, SAT_DMAX = 271, 279, -22, 19
 
@@ -388,6 +450,83 @@ def _event_once(fn):
     return start.elapsed_time(stop), out
 
 
+# plain runs made while the kernels build (the card idles then):
+# key -> (ms, result on the host)
+_AHEAD: dict = {}
+
+
+def _to(obj, dev):
+    """obj with every tensor in it (in tuples, lists, dicts) on `dev`."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_to(o, dev) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _to(o, dev) for k, o in obj.items()}
+    return obj
+
+
+def _plain(key, fn, jobs=None):
+    """A check's plain run fn() -> (ms, result).  With `jobs` (a list)
+    it is queued there under `key` for _build_ahead; else (ms, result
+    on the card, whether it ran while the kernels built), from _AHEAD
+    when it ran there, run now otherwise."""
+    if jobs is not None:
+        jobs.append((key, fn))
+        return None
+    if key in _AHEAD:
+        t, res = _AHEAD.pop(key)
+        return t, _to(res, "cuda"), True
+    return (*fn(), False)
+
+
+def _while_built(ahead: bool) -> str:
+    return " (run while the kernels built)" if ahead else ""
+
+
+def _build_ahead(jobs):
+    """Builds the kernels in a child process below this one's priority
+    while a thread here runs the plain jobs (key, fn) in order, each
+    result kept in _AHEAD on the host; when the build ends the thread
+    stops after the job in hand, and the checks run the rest
+    themselves.  Returns (the library, the build's seconds, the jobs
+    done)."""
+    import threading
+    from mgm_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " from mgm_tpu_torch.ops import _build; _build.build()", REPO],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=lambda: os.nice(BUILD_NICE))
+    halt, fault = threading.Event(), []
+
+    def run():
+        try:
+            for key, fn in jobs:
+                if halt.is_set():
+                    return
+                t, res = fn()
+                _AHEAD[key] = (t, _to(res, "cpu"))
+        except BaseException as e:   # raised again in the main thread
+            fault.append(e)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    log = child.communicate()[0]
+    secs = time.perf_counter() - t0
+    halt.set()
+    th.join()
+    if fault:
+        raise fault[0]
+    if child.returncode != 0:
+        print(log[-4000:], flush=True)
+    return _build.build(), secs, len(_AHEAD)
+
+
 def _device_kernels(fn, reps: int = 1) -> dict:
     """{device kernel name: [launches, device ms]} of `reps` fn() runs,
     by torch.profiler.  Small kernels of its own run before and after
@@ -441,6 +580,12 @@ def _dense_device(phase, tag, fn, calls: int, groups: int) -> None:
                              f"{calls} calls for {groups} pass groups")
 
 
+def _stamp(phase, t_start) -> None:
+    """The seconds since the script's start, at a phase's start."""
+    print(f"[{phase}] t = {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     """(bound_ms, bound_by) for a call moving `nbytes` and doing `ops`
     float32 operations."""
@@ -469,6 +614,7 @@ def _kernels() -> dict:
     return {"fused_wavefront": cuda_fused.fused_wavefront,
             "wta": cuda_fused.wta, "fused_block": cuda_fused.fused_block,
             "wavefront_scan": wf.wavefront_scan,
+            "wavefront_band": wf.wavefront_band,
             "pointwise_volume": cuda_cost.cost_volume}
 
 
@@ -559,34 +705,49 @@ def _stereo_path(phase, tag, cfg, pair, names, card, reps, tol=0.0,
     return got
 
 
-def _dense_strip(case, rng, dev):
-    """Phase 6, one case: K5 against its plain version on the same
-    image-layout inputs; returns K5's max abs error and the case's
-    plan."""
+def _dense_strip(i, jobs=None):
+    """Phase 6, case DENSE_CASES[i]: K5 against its plain version on the
+    same image-layout inputs, made from the case's own seed; returns
+    K5's max abs error and the case's plan (with `jobs`: queues the
+    plain run, _plain)."""
     import torch
     from mgm_tpu_torch.ops import aggregate as agg
     from mgm_tpu_torch.ops import wavefront as wf
 
-    what, ndir, mgm, fh, wts, restrict, pick = case
-    N = 2
-    lo = np.zeros((N, STRIP, W), np.int32)
-    hi = np.full((N, STRIP, W), L - 1, np.int32)
-    if restrict:
-        lo = rng.integers(0, L - 2, lo.shape).astype(np.int32)
-        hi = (lo + rng.integers(1, L - 1, lo.shape)).clip(max=L - 1)
-        hi = hi.astype(np.int32)
-    cc = rng.uniform(0, 50, (N, STRIP, W, L)).astype(np.float32)
-    inw = (np.arange(L) >= lo[..., None]) & (np.arange(L) <= hi[..., None])
-    cc = np.where(inw, cc, np.inf).astype(np.float32)
-    w8 = np.where(rng.random((N, STRIP, W, 8)) < 0.5, 0.25,
-                  1.0).astype(np.float32)
-    pids = agg._pass_groups(ndir, mgm)[pick]
-    plan = agg.group_plan(pids, STRIP, W, mgm)
-    inputs = tuple(torch.from_numpy(a).to(dev) for a in (cc, w8, lo, hi))
-    kw = agg.scan_kwargs(plan, p1=8.0 * 3, p2=32.0 * 3, mgm=mgm, use_fh=fh,
-                         use_weights=wts, fh_restrict=restrict)
-    out = wf.wavefront_scan(*inputs, **kw)
-    ref = wf.wavefront_scan_plain(*inputs, **kw)
+    what, ndir, mgm, fh, wts, restrict, pick = DENSE_CASES[i]
+
+    def inputs():
+        rng = np.random.default_rng((6, i))
+        N = 2
+        lo = np.zeros((N, STRIP, W), np.int32)
+        hi = np.full((N, STRIP, W), L - 1, np.int32)
+        if restrict:
+            lo = rng.integers(0, L - 2, lo.shape).astype(np.int32)
+            hi = (lo + rng.integers(1, L - 1, lo.shape)).clip(max=L - 1)
+            hi = hi.astype(np.int32)
+        cc = rng.uniform(0, 50, (N, STRIP, W, L)).astype(np.float32)
+        inw = ((np.arange(L) >= lo[..., None])
+               & (np.arange(L) <= hi[..., None]))
+        cc = np.where(inw, cc, np.inf).astype(np.float32)
+        w8 = np.where(rng.random((N, STRIP, W, 8)) < 0.5, 0.25,
+                      1.0).astype(np.float32)
+        pids = agg._pass_groups(ndir, mgm)[pick]
+        plan = agg.group_plan(pids, STRIP, W, mgm)
+        args = tuple(torch.from_numpy(a).cuda() for a in (cc, w8, lo, hi))
+        kw = agg.scan_kwargs(plan, p1=8.0 * 3, p2=32.0 * 3, mgm=mgm,
+                             use_fh=fh, use_weights=wts,
+                             fh_restrict=restrict)
+        return args, kw, plan
+
+    def plain():
+        args, kw, _ = inputs()
+        return _event_once(lambda: wf.wavefront_scan_plain(*args, **kw))
+
+    if jobs is not None:
+        return _plain(("K5", i), plain, jobs)
+    args, kw, plan = inputs()
+    out = wf.wavefront_scan(*args, **kw)
+    _, ref, _ = _plain(("K5", i), plain)
     torch.cuda.synchronize()
     return _compare(f"K5 [{what}]", out, ref), plan
 
@@ -608,23 +769,33 @@ def _dense_path_device(phase, tag, cfg, pair, got):
         u, v, cfg, device="cuda"), got["wavefront_scan"], groups)
 
 
-def _fused_check(phase, cases, errs, u, v, runs=1):
+def _fused_check(phase, cases, errs, u, v, runs=1, jobs=None):
     """K1 and K2 (with the subpixel taps) against their plain versions
     on the uint8 pair (u, v), both LR sides, for each (label, cfg,
     group) case (group None: every fused group of the solve), K1 in
     each of `runs` runs; folds the max abs errors into `errs` and
-    returns each case's plain K1 time (ms, one run)."""
+    returns each case's plain K1 time (ms, one run).  With `jobs`:
+    queues the plain runs (_plain) and checks nothing."""
     import torch
     from mgm_tpu_torch.ops import cuda_fused, fused
 
     plain_ms = []
     for label, cfg, group in cases:
+        key = ("K1", label, u.shape, group)
+
+        def plain(cfg=cfg, group=group):
+            inp = _k1_inputs(cfg, u, v)
+            return _event_once(lambda: _planes(
+                cuda_fused.fused_wavefront_plain, cfg, inp, group)[0])
+
+        if jobs is not None:
+            _plain(key, plain, jobs)
+            continue
         inp = _k1_inputs(cfg, u, v)
         if cfg.a_p2 != 1.0 and inp["w8"] is None:
             raise AssertionError(f"{label}: every edge weight is 1")
         got, ns = _planes(cuda_fused.fused_wavefront, cfg, inp, group)
-        t, (want, _) = _event_once(lambda: _planes(
-            cuda_fused.fused_wavefront_plain, cfg, inp, group))
+        t, want, ahead = _plain(key, plain)
         plain_ms.append(t)
         e1 = _compare(f"K1 {label} group={group}", got, want)
         for run in range(1, runs):
@@ -652,26 +823,44 @@ def _fused_check(phase, cases, errs, u, v, runs=1):
               f"{cfg.distance} ({inp['lefts'].shape[-1]} channels a pixel), "
               f"{'FH' if cfg.use_trunc_linear else 'SGM'}, weights "
               f"{'on' if inp['w8'] is not None else 'off'} ({what}): {TOL}, "
-              f"max abs err {e1}, plain {t:.1f} ms; K2 + taps == plain on "
-              f"those planes ({ns} spaces): max abs err {e2}", flush=True)
+              f"max abs err {e1}, plain {t:.1f} ms{_while_built(ahead)}; "
+              f"K2 + taps == plain on those planes ({ns} spaces): max abs "
+              f"err {e2}", flush=True)
         del got, k2, ref
     return plain_ms
 
 
-def _fused_timing(phase, tag, cfg, u, v, errs, card):
-    """K1 and K2 (+ taps) of cfg at the full shape of (u, v): checked
-    against their plain versions (_fused_check), then each one's time
-    beside its plain version's, K2's beside torch.min over the summed
-    volume, and their bounds.  Returns (ms, plain_ms, library_ms,
-    bounds), each {kernel name: value}."""
+def _fused_timing(phase, tag, cfg, u, v, strip, errs, card):
+    """K1 and K2 (+ taps) of cfg: checked against their plain versions
+    on the full-width strip (_fused_check; at the full shape the plain
+    K1 takes about a minute), K2 (+ taps) also at the full shape of (u,
+    v); then at the full shape each one's time beside its plain
+    version's (K1's plain time the strip's, beside K1's own there), K2's
+    beside torch.min over the summed volume, and their bounds.  Returns
+    (ms, plain_ms, library_ms, bounds, K1's ms on the strip), the first
+    four {kernel name: value}."""
+    import torch
     from mgm_tpu_torch.ops import cuda_fused
 
     plain_ms = {"fused_wavefront": _fused_check(phase, ((tag, cfg, None),),
-                                                errs, u, v, RACE_RUNS)[0]}
+                                                errs, *strip, RACE_RUNS)[0]}
+    inp = _k1_inputs(cfg, *strip)
+    strip_ms = _event_ms(lambda: _planes(cuda_fused.fused_wavefront, cfg,
+                                         inp), 3)
     inp = _k1_inputs(cfg, u, v)
     ms = {"fused_wavefront": _event_ms(lambda: _planes(
         cuda_fused.fused_wavefront, cfg, inp), 3)}
     vol, ns = _planes(cuda_fused.fused_wavefront, cfg, inp)
+    got = cuda_fused.wta(vol, nspaces=ns, sides=inp["sides"], want_taps=True)
+    ref = cuda_fused.wta_plain(vol, nspaces=ns, sides=inp["sides"],
+                               want_taps=True)
+    torch.cuda.synchronize()
+    errs["wta"] = max([errs["wta"]] + [
+        _compare(f"K2 {what} {tag} full shape", a, b)
+        for what, a, b in zip(("disp", "cost", "taps"), got, ref)])
+    del got, ref
+    print(f"[{phase}] K2 + taps == plain at {tag}'s full shape ({TOL})",
+          flush=True)
     library_ms = {"fused_wavefront": None}
     bounds = {"fused_wavefront": _k1_bound(cfg, inp, ns)}
     (ms["wta"], plain_ms["wta"], library_ms["wta"],
@@ -680,12 +869,14 @@ def _fused_timing(phase, tag, cfg, u, v, errs, card):
     del vol
     n_sides = len(inp["sides"])
     name = "fused_wavefront"
-    print(f"[{phase}] {name}: {ms[name]:.3f} ms, plain "
-          f"{plain_ms[name]:.3f} ms, bound {bounds[name][0]:.3f} ms "
+    print(f"[{phase}] {name}: {ms[name]:.3f} ms, bound "
+          f"{bounds[name][0]:.3f} ms "
           f"({bounds[name][1]}) at {tag}'s shapes ({ns * n_sides} planes "
           f"{H}x{W}, L={inp['L']}; every fused group, forward + backward "
-          f"launch) on {card}", flush=True)
-    return ms, plain_ms, library_ms, bounds
+          f"launch); on the {strip[0].shape[0]}x{strip[0].shape[1]} strip "
+          f"{strip_ms:.3f} ms, plain {plain_ms[name]:.3f} ms on {card}",
+          flush=True)
+    return ms, plain_ms, library_ms, bounds, strip_ms
 
 
 def _k2_timing(phase, tag, vol, ns, sides, taps, card):
@@ -744,23 +935,37 @@ def _index_windows(d_true, cfg, rng):
             torch.from_numpy(np.stack(his).astype(np.int32)).cuda())
 
 
-def _pp_check(phase, cases, errs, strip, rng):
+def _pp_check(phase, cases, errs, strip, jobs=None):
     """K1 under per-pixel windows against its plain version, bitwise, on
     the strip (u, v, truth), both LR sides, for each (label, cfg) case
-    with the fh_restrict rule of ops/fused.mgm_solve_fused."""
-    import torch
+    with the fh_restrict rule of ops/fused.mgm_solve_fused, the windows
+    from the case's own seed.  With `jobs`: queues the plain runs
+    (_plain) and checks nothing."""
     from mgm_tpu_torch.ops import cuda_fused
 
     u, v, d = strip
-    for label, cfg in cases:
-        inp = _k1_inputs(cfg, u, v)
-        lo, hi = _index_windows(d, cfg, rng)
-        restrict = (cfg.use_trunc_linear
-                    and not (cfg.mgm == 2 and inp["w8"] is None))
-        inp.update(lo_px=lo, hi_px=hi, fh_restrict=restrict)
+    for i, (label, cfg) in enumerate(cases):
+        def inputs(cfg=cfg, i=i):
+            inp = _k1_inputs(cfg, u, v)
+            lo, hi = _index_windows(d, cfg, np.random.default_rng((19, i)))
+            restrict = (cfg.use_trunc_linear
+                        and not (cfg.mgm == 2 and inp["w8"] is None))
+            inp.update(lo_px=lo, hi_px=hi, fh_restrict=restrict)
+            return inp
+
+        def plain(cfg=cfg, inputs=inputs):
+            inp = inputs()
+            return _event_once(lambda: _planes(
+                cuda_fused.fused_wavefront_plain, cfg, inp)[0])
+
+        key = ("K1 per-pixel", label)
+        if jobs is not None:
+            _plain(key, plain, jobs)
+            continue
+        inp = inputs()
+        lo, hi = inp["lo_px"], inp["hi_px"]
         got, _ = _planes(cuda_fused.fused_wavefront, cfg, inp)
-        t, (want, _) = _event_once(lambda: _planes(
-            cuda_fused.fused_wavefront_plain, cfg, inp))
+        t, want, ahead = _plain(key, plain)
         e1 = _compare(f"K1 per-pixel {label}", got, want)
         errs["fused_wavefront"] = max(errs["fused_wavefront"], e1)
         print(f"[{phase}] K1 == plain under per-pixel windows at "
@@ -768,10 +973,10 @@ def _pp_check(phase, cases, errs, strip, rng):
               f"{cfg.ndir} TSGM {cfg.mgm}, {cfg.distance}, "
               f"{'FH' if cfg.use_trunc_linear else 'SGM'}, weights "
               f"{'on' if inp['w8'] is not None else 'off'}, fh_restrict "
-              f"{restrict} (windows truth +- 6, "
+              f"{inp['fh_restrict']} (windows truth +- 6, "
               f"{float((hi - lo == 0).float().mean()):.3f} one label, "
               f"{float((hi < lo).float().mean()):.3f} empty): {TOL}, max abs "
-              f"err {e1}, plain {t:.1f} ms", flush=True)
+              f"err {e1}, plain {t:.1f} ms{_while_built(ahead)}", flush=True)
         del got, want
 
 
@@ -811,6 +1016,17 @@ def _batch_k1_inputs(cfg, us, vs, K):
               kappa=0.0 if leftover else -float(cfg.ndir - 1),
               use_fh=cfg.use_trunc_linear, w8=w8, npair=K)
     return lefts, rights, kw
+
+
+def _batch_plain(cfg, K):
+    """(ms, volume) of K1's plain version on the batch of the first K
+    satellite pairs (_batch_k1_inputs)."""
+    from mgm_tpu_torch.ops import cuda_fused, fused
+
+    us, vs, _ = _satellite_pairs(K)
+    lefts, rights, kw = _batch_k1_inputs(cfg, us, vs, K)
+    return _event_once(lambda: fused.fused_planes(
+        lefts, rights, wavefront=cuda_fused.fused_wavefront_plain, **kw)[0])
 
 
 def _fronts(groups, R, C):
@@ -878,20 +1094,32 @@ def _launches_process(flag: str) -> dict:
     return json.loads(lines[-1])
 
 
-def _k4_check(phase, cases, errs, runs):
-    """K4 against its plain version, the whole sharded recursion, K4's
-    in each of `runs` runs against one plain run, and against K1's
-    unsharded volume, bitwise, for each (label, cfg, pair, ranks, group,
-    block) case; returns each case's plain time (ms, one run)."""
+def _k4_check(phase, cases, errs, runs, jobs=None):
+    """K4 against K1's unsharded volume in each of `runs` runs, and
+    against its plain version (the whole sharded recursion, one plain
+    run) where the case asks, bitwise, for each (label, cfg, pair,
+    ranks, group, block, plain) case; returns the plain cases' plain
+    times (ms, one run).  With `jobs`: queues the plain runs (_plain)
+    and checks nothing."""
     import torch
     from mgm_tpu_torch.ops import cuda_fused
 
     plain_ms = []
-    for label, cfg, (u, v), n, group, block in cases:
+    for label, cfg, (u, v), n, group, block, plain in cases:
+        def run_plain(cfg=cfg, u=u, v=v, n=n, group=group, block=block):
+            inp = _k1_inputs(cfg, u, v)
+            return _event_once(lambda: _k4_planes(
+                cuda_fused.fused_block_plain, cfg, inp, n, group, block)[0])
+
+        if jobs is not None:
+            if plain:
+                _plain(("K4", label), run_plain, jobs)
+            continue
         inp = _k1_inputs(cfg, u, v)
-        t, (want, _) = _event_once(lambda: _k4_planes(
-            cuda_fused.fused_block_plain, cfg, inp, n, group, block))
-        plain_ms.append(t)
+        want, t, ahead = None, None, False
+        if plain:
+            t, want, ahead = _plain(("K4", label), run_plain)
+            plain_ms.append(t)
         ref, _ = _planes(cuda_fused.fused_wavefront, cfg, inp, group)
         err, rows = 0.0, []
         for run in range(runs):
@@ -900,21 +1128,23 @@ def _k4_check(phase, cases, errs, runs):
             rows = []
             for k in sorted(got):
                 r0, vol = got[k]
-                err = max(err, _compare(f"K4 {label} run {run} rank {k}",
-                                        vol, want[k][1]))
-                _compare(f"K4 {label} rank {k} against K1",
+                if plain:
+                    err = max(err, _compare(f"K4 {label} run {run} rank "
+                                            f"{k}", vol, want[k][1]))
+                _compare(f"K4 {label} run {run} rank {k} against K1",
                          vol, ref[:, r0:r0 + vol.shape[1]])
                 rows.append(vol.shape[1])
             del got
         errs["fused_block"] = max(errs["fused_block"], err)
-        print(f"[{phase}] K4 == plain in each of {runs} runs, sharded over "
-              f"{n} ranks of the card (rows {rows}, blocks of "
-              f"{block or 'the default'} steps), {label}: "
-              f"{u.shape[0]}x{u.shape[1]}x3, L={inp['L']}, ndir {cfg.ndir} "
-              f"TSGM {cfg.mgm}, {cfg.distance}, "
+        print(f"[{phase}] K4 sharded over {n} ranks of the card (rows "
+              f"{rows}, blocks of {block or 'the default'} steps), {label}:"
+              f" {u.shape[0]}x{u.shape[1]}x3, L={inp['L']}, ndir {cfg.ndir}"
+              f" TSGM {cfg.mgm}, {cfg.distance}, "
               f"{'FH' if cfg.use_trunc_linear else 'SGM'}, {ns} spaces: "
-              f"{TOL}, max abs err {err}; every band == K1's unsharded "
-              f"volume; plain {t:.1f} ms", flush=True)
+              f"every band == K1's unsharded volume in each of {runs} runs"
+              + (f"; == plain in each ({TOL}), max abs err {err}, plain "
+                 f"{t:.1f} ms{_while_built(ahead)}" if plain else "")
+              + f" ({TOL})", flush=True)
         del want, ref, inp
         torch.cuda.empty_cache()
     return plain_ms
@@ -944,10 +1174,12 @@ def _k4_bound(cfg, inp, n):
     return _bound(nbytes + track, ops)
 
 
-def _mesh_path(phase, tag, cfg, pair, n, card, win=None):
+def _mesh_path(phase, tag, cfg, pair, n, card, win=None, names=None,
+               absent=("fused_wavefront",)):
     """compute_disparity over n in-process ranks on the card: every
-    output bitwise equal to the unsharded run's, K4 and (constant
-    windows) K2 launched, K1 not; the median walls of NEW_REPS runs,
+    output bitwise equal to the unsharded run's, the kernels `names`
+    launched (default K4 and, with constant windows, K2), those of
+    `absent` not (default K1); the median walls of NEW_REPS runs,
     sharded and unsharded.  Returns the launch counts."""
     import torch
     from mgm_tpu_torch import compute_disparity
@@ -957,16 +1189,16 @@ def _mesh_path(phase, tag, cfg, pair, n, card, win=None):
     win = win or {}
     mesh = make_mesh(devices=["cuda:0"] * n)
     ref = compute_disparity(u, v, cfg, device="cuda", **win)
-    names = ("fused_block",) if win else SHARD_KERNELS
-    _zero(SHARD_KERNELS + ("fused_wavefront",))
+    names = names or (("fused_block",) if win else SHARD_KERNELS)
+    _zero(tuple(_kernels()))
     torch.cuda.reset_peak_memory_stats()
     out = compute_disparity(u, v, cfg, mesh=mesh, **win)
     got = _counts(names)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if min(got.values()) < 1 or _counts(("fused_wavefront",))[
-            "fused_wavefront"]:
-        raise AssertionError(f"{tag}: the sharded run bypassed K4 or "
-                             f"launched K1: {got}")
+    if min(got.values()) < 1 or any(_counts(absent).values()):
+        raise AssertionError(f"{tag}: the sharded run bypassed one of "
+                             f"{names} or launched one of {absent}: {got}, "
+                             f"{_counts(absent)}")
     if sorted(out) != sorted(ref):
         raise AssertionError(f"{tag}: keys {sorted(out)}")
     for k in ref:
@@ -984,7 +1216,8 @@ def _mesh_path(phase, tag, cfg, pair, n, card, win=None):
           f"(ndir {cfg.ndir}, TSGM {cfg.mgm}, {cfg.distance}"
           f"{', per-pixel windows' if win else ''}): every output == the "
           f"unsharded run ({TOL}); launches {got}; peak device memory "
-          f"{peak:.3f} GiB; wall s {walls}, median {med:.4f} s = "
+          f"{peak:.3f} GiB (the card's: its {n} ranks together); wall s "
+          f"{walls}, median {med:.4f} s = "
           f"{2 * H_ * W_ * L_ / med / 1e6:.1f} MP*disp/s; unsharded "
           f"median {med1:.4f} s = {2 * H_ * W_ * L_ / med1 / 1e6:.1f} "
           f"MP*disp/s on {card}", flush=True)
@@ -1254,6 +1487,229 @@ def _k8_timing(u, v, card):
     return (ms, plain, None, bound), err
 
 
+def _band_case(case, dev):
+    """One K5-on-a-band case's inputs on `dev`: (mesh, bands, the
+    unsharded volume and windows, the scan's keywords)."""
+    import torch
+    from mgm_tpu_torch.parallel import make_mesh
+    from mgm_tpu_torch.parallel.halo import band_volumes, cutter
+
+    label, (N, Hs, Ws, Ls), n, block, kw = case
+    rng = np.random.default_rng(Hs * Ls + n)
+    cc = rng.uniform(0, 50, (N, Hs, Ws, Ls)).astype(np.float32)
+    lo = rng.integers(0, max(1, Ls // 3), (N, Hs, Ws)).astype(np.int32)
+    hi = (lo + Ls // 2).astype(np.int32)
+    if kw.get("fh_restrict"):
+        inw = (np.arange(Ls) >= lo[..., None]) & (np.arange(Ls)
+                                                  <= hi[..., None])
+        cc = np.where(inw, cc, np.inf).astype(np.float32)
+    w8 = np.where(rng.random((N, Hs, Ws, 8)) < 0.5, 0.25, 1.0).astype(
+        np.float32)
+    t = {k: torch.from_numpy(a).to(dev)
+         for k, a in dict(cc=cc, w8=w8, lo=lo, hi=hi).items()}
+    side = dict(w8=t["w8"] if kw.get("use_weights") else None)
+    if kw.get("fh_restrict"):
+        side.update(lo=t["lo"], hi=t["hi"])
+    mesh = make_mesh(devices=[dev] * n)
+    bands = band_volumes(mesh, Hs, Ws, cutter(t["cc"]), **side)
+    return mesh, bands, t["cc"], side, dict(kw, p1=24.0, p2=96.0)
+
+
+def _band_check(phase, cases, errs, runs, jobs=None):
+    """K5 on a band (the sharded dense recursion, parallel/halo.py) over
+    in-process ranks on the card against its plain version (the same
+    recursion through wavefront_band_plain) and against the unsharded
+    K5, bitwise, in each of `runs` runs; returns each case's (plain
+    time, the kernel's time) in ms.  With `jobs`: queues the plain runs
+    (_plain) and checks nothing."""
+    import torch
+    from mgm_tpu_torch.ops import aggregate as agg
+    from mgm_tpu_torch.ops import wavefront as wf
+    from mgm_tpu_torch.parallel.halo import aggregate_bands
+
+    dev = torch.device("cuda")
+    times = []
+    for case in cases:
+        label, (N, Hs, Ws, Ls), n, block, _ = case
+
+        def sharded(mesh, bands, kw, kernel=None, Hs=Hs, Ws=Ws, block=block):
+            return mesh.gather_rows(aggregate_bands(
+                mesh, Hs, Ws, bands, block=block, kernel=kernel, **kw), Hs)
+
+        def plain(case=case, sharded=sharded):
+            mesh, bands, _, _, kw = _band_case(case, dev)
+            return _event_once(lambda: sharded(mesh, bands, kw,
+                                               wf.wavefront_band_plain))
+
+        if jobs is not None:
+            _plain(("K5-band", label), plain, jobs)
+            continue
+        mesh, bands, cc, side, kw = _band_case(case, dev)
+        t, want, ahead = _plain(("K5-band", label), plain)
+        one = agg.aggregate(cc, side.get("w8"), side.get("lo"),
+                            side.get("hi"), **kw)
+        err = 0.0
+        for r in range(runs):
+            got = sharded(mesh, bands, kw)
+            err = max(err, _compare(f"K5-band {label} run {r}", got, want))
+            _compare(f"K5-band {label} run {r} against K5", got, one)
+            del got
+        errs["wavefront_band"] = max(errs["wavefront_band"], err)
+        kt = _event_ms(lambda: sharded(mesh, bands, kw), 3)
+        times.append((t, kt))
+        rows = [mesh.rows(Hs, k) for k in range(n)]
+        print(f"[{phase}] K5-band == plain in each of {runs} runs, over {n} "
+              f"ranks of the card (row bands {rows}, blocks of {block} "
+              f"fronts), {label}: {N}x{Hs}x{Ws}, L={Ls}: {TOL}, max abs err "
+              f"{err}; == the unsharded K5 (aggregate); {kt:.3f} ms, plain "
+              f"{t:.1f} ms{_while_built(ahead)}", flush=True)
+        del want, one, bands
+        torch.cuda.empty_cache()
+    return times
+
+
+def _ncc_bands(u, v, ncc, mesh):
+    """ncc_mesh2's band volumes as compute_disparity builds them
+    (halo.pair_bands on the prepped images), and the whole volumes."""
+    import torch
+    from mgm_tpu_torch import stereo
+    from mgm_tpu_torch.ops.cost import build_cost_volume
+    from mgm_tpu_torch.parallel.halo import pair_bands
+
+    ut, vt = (stereo._preprocess(stereo._scrub(a, "cuda"), ncc)
+              for a in (u, v))
+    lo = torch.stack([torch.full((H, W), 0, dtype=torch.int32,
+                                 device="cuda")] * 2)
+    hi = lo + L - 1
+    kw = dict(distance="ncc", L=L, trunc_dist=ncc.trunc_dist,
+              ncc_win=ncc.census_ncc_win)
+    bands = pair_bands(mesh, ut, vt, lo, hi, (DMIN, -DMAX),
+                       pids=range(ncc.ndir), **kw)
+    whole = torch.stack([build_cost_volume(a, b, lo[0], hi[0], g, **kw)
+                         for a, b, g in ((ut, vt, DMIN), (vt, ut, -DMAX))])
+    return bands, whole
+
+
+def _band_bound(ncc, n):
+    """(bytes, float32 operations) of the sharded NCC recursion: K5's
+    (each pass's costs read, its output and minima written, about 20
+    operations a cell) plus the halo tracks, each sub-launch's band edge
+    row (L values and the minimum a front, each plane) written by n - 1
+    ranks and read by their neighbours."""
+    from mgm_tpu_torch.ops import aggregate as agg
+
+    nbytes = ops = 0
+    for g in agg._pass_groups(ncc.ndir, ncc.mgm):
+        plan = agg.group_plan(g, H, W, ncc.mgm)
+        planes = 2 * len(g)
+        cells = planes * H * W * L
+        nbytes += 2 * cells * 4 + planes * H * W * 4
+        ops += cells * 20
+        T = plan.C + plan.slope * (plan.R - 1)
+        nbytes += 2 * (n - 1) * T * planes * (L + 1) * 4
+    return nbytes, ops
+
+
+def _stream_peaks(fn, names: dict):
+    """The peak bytes live on each stream during fn(), from the caching
+    allocator's trace of its allocations and frees (an allocation
+    belongs to the stream it was made on): ({names[stream] or "other":
+    bytes}, the peak of their sum)."""
+    import torch
+
+    torch.cuda.synchronize()
+    rec = dict(context=None, stacks="python", max_entries=10**7)
+    try:   # a fresh trace (clear_history is newer than the tracer)
+        torch.cuda.memory._record_memory_history(**rec, clear_history=True)
+    except TypeError:
+        torch.cuda.memory._record_memory_history(**rec)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][0]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    owner, live, peak = {}, {}, {}
+    total = top = 0
+    for e in trace:
+        if e["action"] == "alloc":
+            who, size = names.get(e.get("stream"), "other"), e["size"]
+            owner[e["addr"]] = (who, size)
+        elif e["action"] == "free_completed" and e["addr"] in owner:
+            who, size = owner.pop(e["addr"])
+            size = -size
+        else:
+            continue
+        live[who] = live.get(who, 0) + size
+        peak[who] = max(peak.get(who, 0), live[who])
+        total += size
+        top = max(top, total)
+    return peak, top
+
+
+def _k5b_launch_worker() -> int:
+    """Phase 29's count of K5-band's device kernels, in a process of its
+    own (late in a long process torch.profiler loses kernels): one
+    ncc_mesh2 run (after a warm one) under torch.profiler; prints its
+    K5-band kernels, their device ms, the wrapper's calls, the run's
+    host wall and the card's busy share of it, then each rank's peak
+    memory in one more run and the unsharded run's (_stream_peaks), as
+    JSON."""
+    sys.path.insert(0, REPO)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mgm_tpu_torch import compute_disparity
+    from mgm_tpu_torch.models import get_preset
+    from mgm_tpu_torch.ops import wavefront as wf
+    from mgm_tpu_torch.parallel import make_mesh
+    from mgm_tpu_torch.synthetic import synthetic_pair
+
+    u, v, _ = synthetic_pair(H, W, DMIN, DMAX, seed=0)
+    ncc = get_preset("ncc", dmin=DMIN, dmax=DMAX)
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+
+    def run():
+        return compute_disparity(u, v, ncc, mesh=mesh,
+                                 outputs=("disp", "cost"))
+
+    run()
+    torch.cuda.synchronize()
+    wf.wavefront_band.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b, _ in spans:   # the union of the device's kernel intervals
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    band = [(a, b) for a, b, n in spans if K5B_KERNEL in n]
+    calls = wf.wavefront_band.launches
+    # each rank's peak memory (one-card emulation: the card's peak is
+    # every rank's together), beside the unsharded run's, traced alike
+    ranks = {mesh.stream(k).cuda_stream: f"rank {k}" for k in range(2)}
+    sharded, both = _stream_peaks(lambda: compute_disparity(
+        u, v, ncc, mesh=mesh), ranks)
+    _, one = _stream_peaks(lambda: compute_disparity(
+        u, v, ncc, device="cuda"), {})
+    print(json.dumps({"calls": calls, "device": len(band),
+                      "device_ms": sum(b - a for a, b in band) / 1e3,
+                      "wall_ms": wall * 1e3, "busy": busy / 1e3 / (wall * 1e3),
+                      "peak_gib": {k: b / 2**30 for k, b in sharded.items()},
+                      "peak_sum_gib": both / 2**30,
+                      "unsharded_peak_gib": one / 2**30}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--dist-worker"]:
@@ -1262,6 +1718,8 @@ def main(argv=None) -> int:
         return _k4_launch_worker()
     if argv[:1] == ["--k2k8-launches"]:
         return _k2k8_launch_worker()
+    if argv[:1] == ["--k5b-launches"]:
+        return _k5b_launch_worker()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--data", default=os.path.join(REPO, "data"),
                     help="directory with fountain23-im{L,R}.png (optional)")
@@ -1292,22 +1750,97 @@ def main(argv=None) -> int:
     print(f"[1] device: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.device_count()} visible",
           flush=True)
-    t0 = time.perf_counter()
-    lib = _build.build()
-    print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
+    # the kernel-against-plain checks' cases and inputs: their plain runs
+    # go ahead while the kernels build (_build_ahead)
+    cfg = _fast_ad()
+    cfg2 = get_preset("census_tl", dmin=DMIN, dmax=DMAX, test_lr=True)
+    # cfg4: AD on 3 sobel-x channels truncated at 63*3, FH
+    cfg4 = get_preset("sobelx_tl", dmin=DMIN, dmax=DMAX, test_lr=True)
+    sat = get_preset("satellite", test_lr=True)
+    pair = synthetic_pair(H, W, DMIN, DMAX, seed=0)
+    u, v, d_true = pair
+    strip = synthetic_pair(STRIP, W, DMIN, DMAX, seed=1)[:2]
+    k4_strip = synthetic_pair(STRIP, K4_STRIP_W, DMIN, DMAX, seed=1)[:2]
+    pp_strip = synthetic_pair(STRIP, W, DMIN, DMAX, seed=19)
+    k1_checks = {
+        "2-3": ((("cfg1", cfg, None),
+                 ("fast_ad", _fast_ad(ndir=2, mgm=4), None)), strip),
+        "5": ((("cfg1", cfg, None),), (u, v)),
+        "10": ((("fast_ad V group", _fast_ad(ndir=8), 1),
+                ("fast_ad parity group", _fast_ad(ndir=8, mgm=4), 1)),
+               synthetic_pair(STRIP, W, DMIN, DMAX, seed=2)[:2]),
+        "14": ((("full_16dir", _fast_ad(ndir=16), None),
+                ("cfg1_tsgm4", _fast_ad(mgm=4), None)), strip),
+        # cfg4 on the strip: at the full shape its plain run alone takes
+        # about 46 s, and cfg2 already holds the full shape's groups
+        "15": ((("cfg4", cfg4, None),), strip),
+        "16": ((("bt", get_preset("bt", dmin=DMIN, dmax=DMAX,
+                                  test_lr=True), None),
+                ("cfg2 with weights (aP2 0.5)", cfg2.replace(a_p2=0.5),
+                 None),
+                ("fast_ad ndir 8 with weights (aP2 0.5)",
+                 _fast_ad(ndir=8, a_p2=0.5), None)), strip)}
+    pp_cases = (
+        ("fast_ad TSGM 2", _fast_ad()),
+        ("census_tl", get_preset("census_tl", dmin=DMIN, dmax=DMAX,
+                                 test_lr=True)),
+        ("FH TSGM 2 unweighted", _fast_ad(use_trunc_linear=True)),
+        ("weighted FH TSGM 2 (aP2 0.5)",
+         _fast_ad(use_trunc_linear=True, a_p2=0.5)))
+    # (the first case's plain time is K4's record: it runs after the build)
+    k4_cases = (
+        ("cfg1 A/B stagger, strip", cfg, k4_strip, 2, None, None, True),
+        ("cfg1 A/B stagger, full shape", cfg, (u, v), 2, None, None, False),
+        ("cfg2 V group (census, FH, lockstep aprons), strip", cfg2,
+         k4_strip, 2, 1, None, True),
+        ("cfg2 V group, full shape", cfg2, (u, v), 2, 1, None, False),
+        ("cfg1_tsgm4 PB group (lockstep aprons), strip", _fast_ad(mgm=4),
+         k4_strip, 2, 1, None, True),
+        ("cfg1_tsgm4 PB group, full shape", _fast_ad(mgm=4), (u, v), 2, 1,
+         None, False),
+        ("cfg1, ragged rows", cfg,
+         synthetic_pair(61, K4_STRIP_W, DMIN, DMAX, seed=5)[:2], 3, None, 4,
+         True))
+    # (the plain recursion steps a front at a time over both the row and
+    # the column bands: a 700-wide strip's column bands are 700 canonical
+    # rows deep, 22-72 s a case on the H100; BAND_STRIP keeps each case
+    # a few seconds, 5 and more blocks a band; the first case's plain
+    # time is K5-band's record: it runs after the build)
+    band_cases = (
+        ("every group kind (ndir 16, TSGM 2: axis slope 1, diagonal slope "
+         "2, knight; both flow signs, row and column bands)",
+         (2,) + BAND_STRIP + (L,), 2, BLOCK, dict(ndir=16, mgm=2)),
+        ("weighted FH (mgm_o VTYPE 1: ndir 8, TSGM 2)",
+         (1,) + BAND_STRIP + (L,), 2, BLOCK,
+         dict(ndir=8, mgm=2, use_fh=True, use_weights=True)),
+        ("weighted FH restricted to windows, TSGM 3, blocks of 4",
+         (2, 20, BAND_STRIP[1], L), 3, 4, dict(ndir=8, mgm=3, use_fh=True,
+                                              use_weights=True,
+                                              fh_restrict=True)),
+        ("9 rows over 4 ranks (3, 3, 3 and none), ndir 16 TSGM 4",
+         (2, 9, BAND_STRIP[1], L), 4, BLOCK, dict(ndir=16, mgm=4)))
+    jobs = []
+    for phase, (cases, (cu_, cv_)) in k1_checks.items():
+        _fused_check(phase, cases, None, cu_, cv_, jobs=jobs)
+    for i in range(len(DENSE_CASES)):
+        _dense_strip(i, jobs)
+    _pp_check("19", pp_cases, None, pp_strip, jobs)
+    _plain(("K1 batch", 8), lambda: _batch_plain(sat, 8), jobs)
+    _k4_check("24", k4_cases[1:], None, RACE_RUNS, jobs)
+    _band_check("28", band_cases[1:], None, RACE_RUNS, jobs)
+    lib, secs, done = _build_ahead(jobs)
+    print(f"[1] kernels built in {secs:.1f} s: {lib} (at a lower "
+          f"priority; meanwhile {done} of {len(jobs)} plain runs of the "
+          f"checks were made)")
     print((lib.parent / "build.log").read_text().strip(), flush=True)
 
     # ---- 2./3. K1 and K2 against their plain versions ----------------
+    _stamp("2", t_start)
     errs = {n: 0.0 for n in tuple(_kernels()) + ABSORBED}
-    strip = synthetic_pair(STRIP, W, DMIN, DMAX, seed=1)[:2]
-    _fused_check("2-3", (("cfg1", _fast_ad(), None),
-                         ("fast_ad", _fast_ad(ndir=2, mgm=4), None)),
-                 errs, *strip)
+    _fused_check("2-3", k1_checks["2-3"][0], errs, *k1_checks["2-3"][1])
 
     # ---- 4. cfg1 end to end -------------------------------------------
-    cfg = _fast_ad()
-    pair = synthetic_pair(H, W, DMIN, DMAX, seed=0)
-    u, v, d_true = pair
+    _stamp("4", t_start)
     # per kernel: {main path: launches in that path's run}
     by_path = {n: {} for n in _kernels()}
     got = _stereo_path("4", "cfg1", cfg, pair, FUSED_KERNELS, card, REPS)
@@ -1324,8 +1857,9 @@ def main(argv=None) -> int:
                              f"{got['fused_wavefront']} calls")
 
     # ---- 5. K1 and K2 at cfg1's full shape; K2's time at cfg1 ---------
+    _stamp("5", t_start)
     # (phase 15 times K1 and K2 + taps at cfg2: K1's record)
-    _fused_check("5", (("cfg1", cfg, None),), errs, u, v, RACE_RUNS)
+    _fused_check("5", k1_checks["5"][0], errs, u, v, RACE_RUNS)
     ms, plain_ms, library_ms, bounds = {}, {}, {}, {}
     inp = _k1_inputs(cfg, u, v)
     vol, ns = _planes(cuda_fused.fused_wavefront, cfg, inp)
@@ -1352,9 +1886,9 @@ def main(argv=None) -> int:
               f"{np.isfinite(res['disp']).mean():.4f} on {card}")
 
     # ---- 6. dense kernels against their plain versions ----------------
-    rng = np.random.default_rng(6)
-    for case in DENSE_CASES:
-        e, plan = _dense_strip(case, rng, torch.device("cuda"))
+    _stamp("6", t_start)
+    for i, case in enumerate(DENSE_CASES):
+        e, plan = _dense_strip(i)
         errs["wavefront_scan"] = max(errs["wavefront_scan"], e)
         print(f"[6] K5 == plain (canonicalise, skew, fronts, unskew, "
               f"un-canonicalise) at {STRIP}x{W}, L={L}, 2 problems, "
@@ -1364,6 +1898,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 7. mgm_o at full width ---------------------------------------
+    _stamp("7", t_start)
     unary, w8, planted = synthetic_mrf(H, W, L, seed=0)
     with tempfile.TemporaryDirectory() as tmp:
         f_in, f_out = os.path.join(tmp, "input.bin"), os.path.join(
@@ -1409,6 +1944,7 @@ def main(argv=None) -> int:
     del unary, w8
 
     # ---- 8. the ncc preset at cfg1 geometry ---------------------------
+    _stamp("8", t_start)
     ncc = get_preset("ncc", dmin=DMIN, dmax=DMAX)
     _zero(DENSE_KERNELS)
     torch.cuda.reset_peak_memory_stats()
@@ -1450,6 +1986,7 @@ def main(argv=None) -> int:
         len(agg._pass_groups(ncc.ndir, ncc.mgm)))
 
     # ---- 9. K5 at the largest NCC pass group ---------------------------
+    _stamp("9", t_start)
     dev = torch.device("cuda")
     ut, vt = (torch.from_numpy(a).to(dev).float() for a in (u, v))
     lo = torch.zeros((H, W), dtype=torch.int32, device=dev)
@@ -1560,11 +2097,11 @@ def main(argv=None) -> int:
     del unary, w8
 
     # ---- 10. K1 and K2 in the V and packed-parity spaces -------------
-    _fused_check("10", (("fast_ad V group", _fast_ad(ndir=8), 1),
-                        ("fast_ad parity group", _fast_ad(ndir=8, mgm=4), 1)),
-                 errs, *synthetic_pair(STRIP, W, DMIN, DMAX, seed=2)[:2])
+    _stamp("10", t_start)
+    _fused_check("10", k1_checks["10"][0], errs, *k1_checks["10"][1])
 
     # ---- 11. K8 against its plain version at full width -------------
+    _stamp("11", t_start)
     k8e = _k8_check(u, v, d_true, dev)
     k8r, k8t = _k8_timing(u, v, card)
     errs["pointwise_volume"] = max(k8e, k8t)
@@ -1573,6 +2110,7 @@ def main(argv=None) -> int:
     _k2k8_launches()
 
     # ---- 12./13. full_16dir and cfg1_tsgm4 end to end ----------------
+    _stamp("12", t_start)
     rows = {"full_16dir": ("12", _fast_ad(ndir=16),
                            ("fused_wavefront",) + DENSE_KERNELS
                            + ("pointwise_volume",)),
@@ -1585,11 +2123,10 @@ def main(argv=None) -> int:
             _dense_path_device(phase, tag, rcfg, pair, got)
         torch.cuda.empty_cache()
 
-    # ---- 14. K1 and K2 at the new rows' full shapes; K1 per front ---
-    _fused_check("14", (("full_16dir", _fast_ad(ndir=16), None),
-                        ("cfg1_tsgm4", _fast_ad(mgm=4), None)), errs, u, v)
+    # ---- 14. K1 and K2 for the new rows' groups; K1 per front ---------
+    _stamp("14", t_start)
+    _fused_check("14", k1_checks["14"][0], errs, *strip)
     torch.cuda.empty_cache()
-    cfg2 = get_preset("census_tl", dmin=DMIN, dmax=DMAX, test_lr=True)
     for tag, kcfg, group in (("A/B slope 2", _fast_ad(ndir=16), 0),
                              ("V", _fast_ad(ndir=16), 1),
                              ("PB", _fast_ad(mgm=4), 1),
@@ -1609,30 +2146,27 @@ def main(argv=None) -> int:
         del inp
 
     # ---- 15. K1 and K2 (+ taps) at cfg2's full shape, cfg4's strip --
+    _stamp("15", t_start)
     # cfg2: census 3x3 (one word a pixel), FH, ndir 8, TSGM 3: A/B at
-    # slope 2 and V; these are the kernels' record's times and bounds.
-    # cfg4: AD on 3 sobel-x channels truncated at 63*3, FH.
-    k1k2 = _fused_timing("15", "cfg2", cfg2, u, v, errs, card)
+    # slope 2 and V; these are the kernels' record's times and bounds
+    # (K1's plain time the strip's, beside K1's own there).
+    k1k2 = _fused_timing("15", "cfg2", cfg2, u, v, strip, errs, card)
     for d, part in zip((ms, plain_ms, library_ms, bounds), k1k2):
         d["fused_wavefront"] = part["fused_wavefront"]
+    strip_ms = {"fused_wavefront": k1k2[4]}
     k2_cfg2 = {"ms": k1k2[0]["wta"], "plain_ms": k1k2[1]["wta"],
                "bound_ms": k1k2[3]["wta"][0], "bound_by": k1k2[3]["wta"][1],
                "library_ms": k1k2[2]["wta"]}
     torch.cuda.empty_cache()
-    # cfg4 on the strip: at the full shape its plain run alone takes
-    # about 46 s, and cfg2 already holds the full shape's groups
-    cfg4 = get_preset("sobelx_tl", dmin=DMIN, dmax=DMAX, test_lr=True)
-    _fused_check("15", (("cfg4", cfg4, None),), errs, *strip)
+    _fused_check("15", k1_checks["15"][0], errs, *strip)
     torch.cuda.empty_cache()
 
     # ---- 16. K1 and K2 with BT costs and with edge weights -----------
-    _fused_check("16", (
-        ("bt", get_preset("bt", dmin=DMIN, dmax=DMAX, test_lr=True), None),
-        ("cfg2 with weights (aP2 0.5)", cfg2.replace(a_p2=0.5), None),
-        ("fast_ad ndir 8 with weights (aP2 0.5)",
-         _fast_ad(ndir=8, a_p2=0.5), None)), errs, *strip)
+    _stamp("16", t_start)
+    _fused_check("16", k1_checks["16"][0], errs, *strip)
 
     # ---- 17. cfg2 and cfg4 end to end ---------------------------------
+    _stamp("17", t_start)
     rows = {"cfg2": ("17", cfg2),
             "cfg4": ("17", cfg4)}
     for tag, (phase, rcfg) in rows.items():
@@ -1643,6 +2177,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     # ---- 18. the other presets: CUDA == CPU on the crop ---------------
+    _stamp("18", t_start)
     _crop_check("18", "satellite", get_preset("satellite", test_lr=True),
                 u, v)
     for name in ("bt", "full_16dir"):
@@ -1650,19 +2185,13 @@ def main(argv=None) -> int:
             name, dmin=DMIN, dmax=DMAX, test_lr=True), u, v)
 
     # ---- 19. K1 under per-pixel windows against its plain version --
-    rng = np.random.default_rng(19)
-    pp_strip = synthetic_pair(STRIP, W, DMIN, DMAX, seed=19)
-    _pp_check("19", (
-        ("fast_ad TSGM 2", _fast_ad()),
-        ("census_tl", get_preset("census_tl", dmin=DMIN, dmax=DMAX,
-                                 test_lr=True)),
-        ("FH TSGM 2 unweighted", _fast_ad(use_trunc_linear=True)),
-        ("weighted FH TSGM 2 (aP2 0.5)",
-         _fast_ad(use_trunc_linear=True, a_p2=0.5))), errs, pp_strip, rng)
+    _stamp("19", t_start)
+    _pp_check("19", pp_cases, errs, pp_strip)
     del pp_strip
     torch.cuda.empty_cache()
 
     # ---- 20. cfg1_mM: per-pixel -m/-M windows end to end --------------
+    _stamp("20", t_start)
     # bench_matrix's row builds full-band constant images; the second
     # run takes the truth +- 8, clipped to the range (L stays 151)
     wins = {"cfg1_mM": (np.full((H, W), DMIN, np.float32),
@@ -1720,6 +2249,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 21. TSGM_ITER = 3 (cfg1, ncc) and TSGM_DEBUG -----------------
+    _stamp("21", t_start)
     # the label axis grows by 4 * (iterations - 1) on each side
     L_it = L + 2 * 4 * 2
     rows = {"cfg1_iter3": (_fast_ad(iterations=3), FUSED_KERNELS, 0.0),
@@ -1762,7 +2292,7 @@ def main(argv=None) -> int:
         raise AssertionError("TSGM_DEBUG energies: CUDA and CPU disagree")
 
     # ---- 22. cfg3_b8 and cfg3_b32: batched pairs ----------------------
-    sat = get_preset("satellite", test_lr=True)
+    _stamp("22", t_start)
     L_sat = SAT_DMAX - SAT_DMIN + 1
     us32, vs32, ds32 = _satellite_pairs(32)
     keys = ("disp", "cost", "disp_right", "cost_right")
@@ -1812,8 +2342,7 @@ def main(argv=None) -> int:
     # pair axis, the pair-major ring, K2's n % nsides table)
     lefts, rights, kw = _batch_k1_inputs(sat, us32, vs32, 8)
     got, ns = fused.fused_planes(lefts, rights, **kw)
-    t, (want, _) = _event_once(lambda: fused.fused_planes(
-        lefts, rights, wavefront=cuda_fused.fused_wavefront_plain, **kw))
+    t, want, ahead = _plain(("K1 batch", 8), lambda: _batch_plain(sat, 8))
     e1 = _compare("K1 cfg3_b8 batch", got, want)
     for run in range(1, RACE_RUNS):
         again, _ = fused.fused_planes(lefts, rights, **kw)
@@ -1830,9 +2359,9 @@ def main(argv=None) -> int:
     errs["fused_wavefront"] = max(errs["fused_wavefront"], e1)
     errs["wta"] = max(errs["wta"], e2)
     print(f"[22] K1 == plain in each of {RACE_RUNS} runs on cfg3_b8's "
-          f"batch (8 pairs, 16 sides, "
-          f"{ns} spaces, {SAT_H}x{SAT_W}, L={L_sat}): {TOL}, max abs err "
-          f"{e1}, plain {t:.1f} ms; K2 + taps == plain on those planes: max "
+          f"batch (8 pairs, 16 sides, {ns} spaces, {SAT_H}x{SAT_W}, "
+          f"L={L_sat}): {TOL}, max abs err {e1}, plain {t:.1f} ms"
+          f"{_while_built(ahead)}; K2 + taps == plain on those planes: max "
           f"abs err {e2}", flush=True)
     del got, k2, ref
     # K1 a front in a batch of 8 against one pair
@@ -1849,6 +2378,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 23. cfg3_scene: the tiled runner on an 8x8 mosaic ------------
+    _stamp("23", t_start)
     su, sv, sd = _satellite_pairs(1, seed0=100)
     su, sv = (np.ascontiguousarray(np.tile(a[0], (8, 8, 1)))
               for a in (su, sv))
@@ -1886,14 +2416,14 @@ def main(argv=None) -> int:
     del su, sv, sd, scene, single
 
     # ---- 24. K4 against its plain version: the sharded recursion ----
-    ragged = synthetic_pair(61, W, DMIN, DMAX, seed=5)[:2]
-    plain_k4 = _k4_check("24", (
-        ("cfg1 A/B stagger, full shape", cfg, (u, v), 2, None, None),
-        ("cfg2 V group (census, FH, lockstep aprons), full shape", cfg2,
-         (u, v), 2, 1, None),
-        ("cfg1_tsgm4 PB group (lockstep aprons), full shape",
-         _fast_ad(mgm=4), (u, v), 2, 1, None),
-        ("cfg1, ragged rows", cfg, ragged, 3, None, 4)), errs, RACE_RUNS)
+    _stamp("24", t_start)
+    # K4 against its plain version on strips (at the full shape the plain
+    # recursion takes 10-20 s a case); at the full shape against K1
+    plain_k4 = _k4_check("24", k4_cases, errs, RACE_RUNS)
+    kin = _k1_inputs(cfg, *k4_strip)
+    strip_ms["fused_block"] = _event_ms(lambda: _k4_planes(
+        cuda_fused.fused_block, cfg, kin, 2), 3)
+    del kin
     inp = _k1_inputs(cfg, u, v)
     _zero(("fused_block",))
     _k4_planes(cuda_fused.fused_block, cfg, inp, 2)
@@ -1917,13 +2447,16 @@ def main(argv=None) -> int:
     print(f"[24] fused_block: {ms['fused_block']:.3f} ms for cfg1's sharded "
           f"recursion over 2 ranks of one card ({blocks} blocks of "
           f"{BLOCK} steps = {ms['fused_block'] / blocks:.4f} ms a block), "
-          f"plain {plain_ms['fused_block']:.3f} ms, bound "
+          f"bound "
           f"{bounds['fused_block'][0]:.3f} ms ({bounds['fused_block'][1]}: "
-          f"K1's volume, images and tracks) on {card}", flush=True)
+          f"K1's volume, images and tracks); on the {STRIP}x{K4_STRIP_W} "
+          f"strip {strip_ms['fused_block']:.3f} ms, plain "
+          f"{plain_ms['fused_block']:.3f} ms on {card}", flush=True)
     del inp
     torch.cuda.empty_cache()
 
     # ---- 25. the sharded path end to end ------------------------------
+    _stamp("25", t_start)
     for tag, rcfg, n, win in (
             ("cfg1_mesh2", cfg, 2, None), ("cfg1_mesh4", cfg, 4, None),
             ("cfg2_mesh2", cfg2, 2, None),
@@ -1936,11 +2469,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     # ---- 26. two processes on the one card ----------------------------
+    _stamp("26", t_start)
     ref1 = compute_disparity(u, v, cfg, device="cuda")
     by_path["fused_block"]["cfg1_2proc"] = _two_processes(
         "26", "cfg1_2proc", ref1, card)[0]
 
     # ---- 27. several cards ---------------------------------------------
+    _stamp("27", t_start)
     if torch.cuda.device_count() > 1:
         from mgm_tpu_torch.parallel import make_mesh
 
@@ -1956,15 +2491,128 @@ def main(argv=None) -> int:
               "group were not measured", flush=True)
     del ref1
 
+    # ---- 28. K5 on a band against its plain version -------------------
+    _stamp("28", t_start)
+    band_times = _band_check("28", band_cases, errs, RACE_RUNS)
+
+    # ---- 29. ncc_mesh2: the dense mesh path at full width ------------
+    _stamp("29", t_start)
+    got = _mesh_path("29", "ncc_mesh2", ncc, pair, 2, card,
+                     names=BAND_KERNELS, absent=DENSE_ABSENT)
+    by_path["wavefront_band"]["ncc_mesh2"] = got["wavefront_band"]
+    rec = _launches_process("--k5b-launches")
+    print(f"[29] K5-band's device kernel launches in one ncc_mesh2 run, in "
+          f"a process of its own (torch.profiler): {rec['device']} (one a "
+          f"block: {rec['calls']} wrapper calls; {got['wavefront_band']} "
+          f"here), their device time {rec['device_ms']:.3f} ms (2 ranks' "
+          f"kernels overlap), the run's wall {rec['wall_ms']:.3f} ms, the "
+          f"card busy {rec['busy']:.3f} of it; peak memory by the stream "
+          f"that allocated it (the caching allocator's trace of one run): "
+          f"{ {k: round(b, 3) for k, b in rec['peak_gib'].items()} } GiB "
+          f"(\"other\": the current stream's: the images, the gathered "
+          f"maps, the post stages), all together {rec['peak_sum_gib']:.3f}"
+          f" GiB; the unsharded run {rec['unsharded_peak_gib']:.3f} GiB",
+          flush=True)
+    if not rec["device"] == rec["calls"] == got["wavefront_band"]:
+        raise AssertionError(f"K5-band launched {rec['device']} device "
+                             f"kernels in {rec['calls']} calls "
+                             f"({got['wavefront_band']} here)")
+    from mgm_tpu_torch.parallel import make_mesh
+    from mgm_tpu_torch.parallel.halo import aggregate_bands
+
+    mesh2 = make_mesh(devices=["cuda:0"] * 2)
+    bands, whole = _ncc_bands(u, v, ncc, mesh2)
+    nkw = dict(p1=ncc.p1 * 3, p2=ncc.p2 * 3, ndir=ncc.ndir, mgm=ncc.mgm)
+    lsum = mesh2.gather_rows(aggregate_bands(mesh2, H, W, bands, **nkw), H)
+    one = agg.aggregate(whole, **nkw)
+    errs["wavefront_band"] = max(errs["wavefront_band"], _compare(
+        "K5-band at ncc_mesh2's full width against K5", lsum, one))
+    del lsum, one
+    ms["wavefront_band"] = _event_ms(
+        lambda: aggregate_bands(mesh2, H, W, bands, **nkw), 3)
+    k5_ncc = _event_ms(lambda: agg.aggregate(whole, **nkw), 3)
+    plain_ms["wavefront_band"], strip_ms["wavefront_band"] = band_times[0]
+    library_ms["wavefront_band"] = None
+    bounds["wavefront_band"] = _bound(*_band_bound(ncc, 2))
+    band_bytes = [sum(t.numel() * 4 for side in b.values() if side
+                      for t in side if t is not None)
+                  for b in bands.values()]
+    print(f"[29] wavefront_band (K5 on a band): {ms['wavefront_band']:.3f} ms"
+          f" for ncc_mesh2's sharded recursion over 2 ranks of one card "
+          f"({got['wavefront_band']} blocks of {BLOCK} fronts), the "
+          f"unsharded K5 {k5_ncc:.3f} ms ({ms['wavefront_band'] / k5_ncc:.2f}"
+          f" times); == K5 at full width ({TOL}); on the {BAND_STRIP} strip "
+          f"of ndir 16 {strip_ms['wavefront_band']:.3f} ms, plain "
+          f"{plain_ms['wavefront_band']:.1f} ms; bound "
+          f"{bounds['wavefront_band'][0]:.3f} ms "
+          f"({bounds['wavefront_band'][1]}: K5's bytes and the halo tracks)"
+          f"; each rank's band volumes (row and column bands) "
+          f"{[round(b / 2**30, 3) for b in band_bytes]} GiB on {card}",
+          flush=True)
+    del bands, whole
+    torch.cuda.empty_cache()
+
+    # ---- 30. full_16dir_mesh2: K4, K8 and K5 on a band ------------------
+    _stamp("30", t_start)
+    got = _mesh_path("30", "full_16dir_mesh2", _fast_ad(ndir=16), pair, 2,
+                     card, names=("fused_block", "wavefront_band",
+                                  "pointwise_volume"),
+                     absent=DENSE_ABSENT + ("wta",))
+    for k in got:
+        by_path[k]["full_16dir_mesh2"] = got[k]
+    torch.cuda.empty_cache()
+
+    # ---- 31. mgm_o_mesh2: solve_tiled against solve_mrf ---------------
+    _stamp("31", t_start)
+    from mgm_tpu_torch.parallel import solve_tiled
+
+    unary, w8, _ = synthetic_mrf(H, W, L, seed=0)
+    cu, cw = (torch.from_numpy(a).cuda()[None] for a in (unary, w8))
+    for vtype in (0, 1):
+        tag = f"mgm_o_mesh2_vtype{vtype}"
+        want = solve_mrf(unary, 8, 8.0, 32.0, 2, vtype, w8, device="cuda")
+
+        def tiled():
+            return solve_tiled(mesh2, cu, cw, p1=8.0, p2=32.0, ndir=8, mgm=2,
+                               use_fh=bool(vtype))
+
+        _zero(tuple(_kernels()))
+        torch.cuda.reset_peak_memory_stats()
+        disp, _ = tiled()
+        got = _counts(BAND_KERNELS + ("wavefront_scan",))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if got["wavefront_band"] < 1 or got["wavefront_scan"]:
+            raise AssertionError(f"{tag}: launches {got}")
+        by_path["wavefront_band"][tag] = got["wavefront_band"]
+        _compare(f"{tag} against solve_mrf", disp[0],
+                 torch.from_numpy(want))
+        tw = _walls(tiled, NEW_REPS)
+        sw = _walls(lambda: solve_mrf(unary, 8, 8.0, 32.0, 2, vtype, w8,
+                                      device="cuda"), NEW_REPS)
+        print(f"[31] {tag}: solve_tiled {W}x{H} L={L} NDIR 8 MGM 2 VTYPE "
+              f"{vtype} over 2 ranks of one card: labels == solve_mrf on the "
+              f"card ({TOL}); launches {got}; peak device memory {peak:.3f} "
+              f"GiB (the card's); wall s {tw}, median "
+              f"{statistics.median(tw):.4f} s; solve_mrf median "
+              f"{statistics.median(sw):.4f} s on {card}", flush=True)
+    del unary, w8, cu, cw, mesh2
+    torch.cuda.empty_cache()
+
     # the absorbed kernels no longer exist: 0 launches wherever K5 runs;
     # K5's group checks hold their work
     for n in ABSORBED:
         by_path[n] = {tag: 0 for tag in by_path["wavefront_scan"]}
         errs[n] = errs["wavefront_scan"]
     launches = {n: sum(c.values()) for n, c in by_path.items()}
-    print(f"[27] smoke run took {time.perf_counter() - t_start:.1f} s",
+    print(f"[31] smoke run took {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
+    # plain times taken at another shape than the kernel's timed one
+    plain_at = {"fused_wavefront": f"cfg2 on a {STRIP}x{W} strip",
+                "fused_block": f"cfg1 on a {STRIP}x{K4_STRIP_W} strip, 2 "
+                               f"ranks",
+                "wavefront_band": f"ndir 16 on a {BAND_STRIP[0]}x"
+                                  f"{BAND_STRIP[1]} strip, 2 ranks"}
     src = {"fused_wavefront": ("mgm_tpu_torch/csrc/fused_wavefront.cu",
                                "mgm_tpu/ops/pallas_fused.py:692"),
            "wta": ("mgm_tpu_torch/csrc/wta.cu",
@@ -1972,6 +2620,8 @@ def main(argv=None) -> int:
            "fused_block": ("mgm_tpu_torch/csrc/fused_block.cu",
                            "mgm_tpu/ops/pallas_fused.py:375"),
            "wavefront_scan": ("mgm_tpu_torch/csrc/wavefront.cu",
+                              "mgm_tpu/ops/pallas_wavefront.py:224"),
+           "wavefront_band": ("mgm_tpu_torch/csrc/wavefront_band.cu",
                               "mgm_tpu/ops/pallas_wavefront.py:224"),
            "skew": ("mgm_tpu_torch/csrc/wavefront.cu",
                     "mgm_tpu/ops/pallas_wavefront.py:43"),
@@ -1987,7 +2637,14 @@ def main(argv=None) -> int:
          "bound_by": bounds[n][1], "library_ms": library_ms[n],
          **({"absorbed_into": "mgm_tpu_torch/csrc/wavefront.cu"}
             if n in ABSORBED else {}),
-         **({"cfg2_taps": k2_cfg2} if n == "wta" else {})}
+         **({"cfg2_taps": k2_cfg2} if n == "wta" else {}),
+         **({"plain_at": plain_at[n], "strip_ms": strip_ms[n]}
+            if n in plain_at else {}),
+         **({"band": {"name": "wavefront_band",
+                      "ms": ms["wavefront_band"],
+                      "launches": launches["wavefront_band"],
+                      "bound_ms": bounds["wavefront_band"][0]}}
+            if n == "wavefront_scan" else {})}
         for n in src]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -113,6 +113,14 @@ struct ScanParams {
                        // or 0
   const int* lo;       // (N, H, W) FH label windows at pix, or 0
   const int* hi;
+  // K5 on a band (BAND): the row above the band (the upstream rank's last
+  // row), its global front s at entry s mod 2G, values (2G, M, L) and
+  // minima (2G, M), or 0 for the first band; the band's last row's values
+  // (G, M, L) and minima (G, M) at the block's fronts, or 0
+  const float* halo;
+  const float* halo_m;
+  float* ship;
+  float* ship_m;
   int B, N, H, W;      // passes, images and the image's size
   int M, R, C, L;      // M = B * N planes of R x C canonical pixels
   int slope, mgm, knight, use_fh, use_weights, fh_restrict;
@@ -126,6 +134,12 @@ struct ScanParams {
   // of each offset rank
   int origin[MGM_MAX_PASSES], dr[MGM_MAX_PASSES], dc[MGM_MAX_PASSES];
   int wch[MGM_MAX_PASSES][MGM_MAX_OFFS];
+  // pass b's first real canonical row, first real column and real
+  // columns: the pixels that aggregate (0, 0, C without mesh padding rows)
+  int row0[MGM_MAX_PASSES], col0[MGM_MAX_PASSES], c1[MGM_MAX_PASSES];
+  // BAND: the global canonical row of the band's row 0, the block's first
+  // front and its fronts (front t holds column t - slope * global row)
+  int r0, t0, G;
 };
 
 // K5's launch plan (ops/wavefront.k5_plan): `ctas` CTAs of `warps` warps,

@@ -159,13 +159,35 @@ def group_plan(pids, H: int, W: int, mgm: int) -> GroupPlan:
                      tuple(pass_map(s, H, W) for s in specs), wch)
 
 
+def _pad_geometry(spec: PassSpec, hpad: int, R: int, C: int):
+    """Where `hpad` fake rows appended at the image bottom land in this
+    pass's canonical space, as shifted border-mask bounds (the JAX
+    module's _pad_geometry, aggregate.py:209-225).
+
+    Pads at the canonical BOTTOM are never read (all canonical deps
+    point to the same row or the row above), so only flip_y passes need
+    a shift: row-major passes get them at the canonical top (row0),
+    col-major passes at the canonical left (col0) — flip_y=False
+    col-major passes get them at the canonical right (C1 shrinks).
+    Returns (row0, col0, C1): the first real canonical row, first real
+    canonical column, and real column count."""
+    if not hpad:
+        return 0, 0, C
+    if spec.row_major:
+        return (hpad if spec.flip_y else 0), 0, C
+    return 0, (hpad if spec.flip_y else 0), C - hpad
+
+
 def scan_kwargs(plan: GroupPlan, *, p1, p2, mgm, use_fh, use_weights,
-                fh_restrict) -> dict:
-    """K5's keyword arguments for the group."""
+                fh_restrict, hpad: int = 0) -> dict:
+    """K5's keyword arguments for the group (`hpad` fake bottom rows:
+    each pass's shifted border, _pad_geometry)."""
     return dict(R=plan.R, C=plan.C, maps=plan.maps, wch=plan.wch, p1=p1,
                 p2=p2, mgm=mgm, dir2off=plan.dir2off, slope=plan.slope,
                 knight=plan.knight, use_fh=use_fh, use_weights=use_weights,
-                fh_restrict=fh_restrict)
+                fh_restrict=fh_restrict,
+                border=tuple(_pad_geometry(s, hpad, plan.R, plan.C)
+                             for s in plan.specs) if hpad else None)
 
 
 def sum_passes(out):
@@ -178,7 +200,7 @@ def sum_passes(out):
 
 
 def _run_group(pids, cc, w8, lo, hi, *, p1, p2, mgm, use_fh, use_weights,
-               fh_restrict):
+               fh_restrict, hpad):
     """One homogeneous pass group through K5 (the JAX _run_group_pallas,
     aggregate.py:390-470) on the image-layout inputs.  cc: (N, H, W, L);
     returns the sum over the group's passes of their aggregated
@@ -186,7 +208,7 @@ def _run_group(pids, cc, w8, lo, hi, *, p1, p2, mgm, use_fh, use_weights,
     plan = group_plan(pids, cc.shape[1], cc.shape[2], mgm)
     return sum_passes(wf.wavefront_scan(cc, w8, lo, hi, **scan_kwargs(
         plan, p1=p1, p2=p2, mgm=mgm, use_fh=use_fh, use_weights=use_weights,
-        fh_restrict=fh_restrict)))
+        fh_restrict=fh_restrict, hpad=hpad)))
 
 
 def aggregate(cc, w8=None, lo=None, hi=None, *, p1: float, p2: float,
@@ -202,12 +224,11 @@ def aggregate(cc, w8=None, lo=None, hi=None, *, p1: float, p2: float,
         mgm_weights.h:69) when use_weights.
     lo/hi: (N, H, W) int32 label windows, needed when fh_restrict
         (truncated-linear potential with per-pixel windows).
-    hpad: mesh padding rows, which only the JAX package's XLA backend
-        takes; must be 0 here.
+    hpad: trailing fake image rows appended so a device mesh divides H
+        (the JAX module's hpad); real border pixels behave exactly as at
+        the true image edge and never read pad cells (K5's shifted
+        border, _pad_geometry).
     """
-    if hpad:
-        raise NotImplementedError("hpad (mesh padding rows): row sharding "
-                                  "is ROADMAP queue 1 item 10")
     if fh_restrict:
         # the MGM==2 unweighted FH path uses the boundary-fixed full-axis
         # min-conv instead of the window-restricted one (mgm_core.cc:208)
@@ -223,6 +244,6 @@ def aggregate(cc, w8=None, lo=None, hi=None, *, p1: float, p2: float,
     for gp in _pass_groups(ndir, mgm, pids):
         part = _run_group(gp, cc, w8, lo, hi, p1=p1, p2=p2, mgm=mgm,
                           use_fh=use_fh, use_weights=use_weights,
-                          fh_restrict=fh_restrict)
+                          fh_restrict=fh_restrict, hpad=hpad)
         out = part if out is None else out + part
     return out

@@ -152,19 +152,23 @@ def pointwise_volume_plain(u, v, *, gmin: int, L: int, mode: str):
                         for l in range(L)], -1)
 
 
-def finish_volume(e, lo, hi, gmin: int, tmax: float):
+def finish_volume(e, lo, hi, gmin: int, tmax: float, x0: int = 0,
+                  width: int | None = None):
     """build_cost_volume's tail on the raw (H, W, L) costs `e`
     (mgm_costvolume.h:337-424): tmax where x + gmin + l lies off the
     image, the NaN-keeping minimum with tmax, 0 for every label of a
     pixel whose [lo, hi] window ((H, W) int32) holds no finite cost,
     +inf outside the window.  K8 does it in its one pass; the NCC volume
-    takes it as tensor code."""
+    takes it as tensor code.  x0, width: e's columns are the image's x0
+    .. x0 + W - 1 of `width` (a band of columns; default the whole
+    image)."""
     H, W, L = e.shape
     dev = e.device
     tmax = torch.tensor(tmax, dtype=torch.float32, device=dev)
     d = gmin + torch.arange(L, dtype=torch.int32, device=dev)
-    qx = torch.arange(W, dtype=torch.int32, device=dev)[:, None] + d[None, :]
-    valid_q = (qx >= 0) & (qx < W)
+    qx = (torch.arange(x0, x0 + W, dtype=torch.int32, device=dev)[:, None]
+          + d[None, :])
+    valid_q = (qx >= 0) & (qx < (W if width is None else width))
     e = torch.where(valid_q[None], e, tmax)
     e = torch.minimum(e, tmax)
     in_win = window_mask(lo, hi, L)

@@ -407,19 +407,62 @@ def mgm_solve_fused(u_p: torch.Tensor, v_p: torch.Tensor, w8=None,
                            vps=vps, w8=w8, leftover=leftover, **tail)
     from ..parallel.fused_shard import sharded_fused_planes
 
-    if leftover or npair != 1:
-        raise NotImplementedError(
-            "row sharding of the fused branch takes one pair and ndir <= 8; "
-            "the dense mesh path (knight passes) is ROADMAP item 10a/10b")
+    if npair != 1:
+        raise ValueError("row sharding of the fused branch takes one pair "
+                         "(mgm_tpu's rule)")
     bands, nspaces = sharded_fused_planes(lefts, rights, mesh=mesh, **kw)
     del lefts, rights
-    res = {k: _solve_tail(vol, r0, nspaces=nspaces, npair=1, **tail)
-           for k, (r0, vol) in bands.items()}
-    del bands
-    H = ups.shape[1]
+    parts = _mesh_leftover(mesh, ups[0], vps[0], w8, leftover, **tail)
+    H, W = ups.shape[1:3]
+    res = {}
+    for k, (r0, vol) in bands.items():
+        if not vol.shape[1]:   # a rank without a row
+            empty = dict(dtype=torch.float32, device=vol.device)
+            res[k] = (torch.empty((N, 0, 4, W), **empty) if want_taps
+                      else None, torch.empty((N, 0, W), **empty),
+                      torch.empty((N, 0, W), **empty))
+            continue
+        res[k] = _solve_tail(vol, r0, nspaces=nspaces, npair=1,
+                             leftover=leftover, part=parts.get(k), **tail)
+    del bands, parts
     return tuple(None if res[mesh.local[0]][i] is None
                  else mesh.gather_rows({k: r[i] for k, r in res.items()}, H)
                  for i in range(3))
+
+
+def _mesh_leftover(mesh, u, v, w8, leftover, *, pair_sides, L, ndir, mgm,
+                   p1, p2, mode, trunc_dist, kappa, fix_overcount, use_fh,
+                   lo_px, hi_px, **_) -> dict:
+    """The leftover (knight) passes of one pair over the mesh, as
+    _solve_tail adds them on one device: each rank's band volumes of the
+    pair's sides through K8 (halo.pair_bands), K5 on the bands
+    (halo.aggregate_bands), plus kappa * CC with the overcount fix;
+    {local rank: (N, h, W, L) on its band of rows}, or {} without
+    leftover passes."""
+    if not leftover:
+        return {}
+    from ..parallel.halo import aggregate_bands, pair_bands
+
+    H, W = u.shape[:2]
+    per_pixel = lo_px is not None
+    if not per_pixel:
+        full = dict(dtype=torch.int32, device=u.device)
+        lo_px, hi_px = (torch.stack([torch.full((H, W), side[j], **full)
+                                     for side in pair_sides])
+                        for j in (1, 2))
+    bands = pair_bands(mesh, u, v, lo_px, hi_px,
+                       [g for g, _, _ in pair_sides], distance=mode, L=L,
+                       trunc_dist=trunc_dist, w8=w8,
+                       fh_restrict=use_fh and per_pixel, pids=leftover)
+    parts = aggregate_bands(mesh, H, W, bands, p1=p1, p2=p2, ndir=ndir,
+                            mgm=mgm, use_fh=use_fh,
+                            use_weights=w8 is not None,
+                            fh_restrict=use_fh and per_pixel,
+                            pids=tuple(leftover))
+    if fix_overcount:
+        for k in parts:
+            parts[k] = parts[k] + kappa * bands[k]["row"][0]
+    return parts
 
 
 def _solve_tail(vol, r0: int, *, nspaces: int, N: int, npair: int,
@@ -427,12 +470,14 @@ def _solve_tail(vol, r0: int, *, nspaces: int, N: int, npair: int,
                 p2: float, mode: str, trunc_dist: float, kappa: float,
                 fix_overcount: bool, use_fh: bool, want_taps: bool,
                 s_lo=None, s_hi=None, lo_px=None, hi_px=None, ups=None,
-                vps=None, w8=None, leftover=()):
+                vps=None, w8=None, leftover=(), part=None):
     """mgm_solve_fused after K1 (or K4) on the rows r0 .. r0 + h - 1 of
     the (nspaces * N, h, W, L) volume: K2, or the materialised sum with
-    the leftover passes (whole images only: ups/vps, w8) and the S
-    assembly.  The windows s_lo/s_hi, lo_px/hi_px hold every image row.
-    Returns (taps, disp, cost) of those rows."""
+    the leftover passes and the S assembly.  The leftover passes' sum
+    (with kappa * CC) is `part` on those rows (a mesh rank's, from
+    _mesh_leftover), or made here from the whole images ups/vps, w8.
+    The windows s_lo/s_hi, lo_px/hi_px hold every image row.  Returns
+    (taps, disp, cost) of those rows."""
     rows = slice(r0, r0 + vol.shape[1])
 
     def band(a):
@@ -446,7 +491,7 @@ def _solve_tail(vol, r0: int, *, nspaces: int, N: int, npair: int,
     s_lo, s_hi = band(s_lo), band(s_hi)
     lsum = assemble_groups(vol, nspaces=nspaces, N=N)
     del vol
-    if leftover:
+    if leftover and part is None:
         cc = _dense_cc(ups, vps, sides=pair_sides, L=L, mode=mode,
                        trunc_dist=trunc_dist, lo_px=lo_px, hi_px=hi_px)
         part = aggregate(cc, w8, lo_px, hi_px, p1=p1, p2=p2, ndir=ndir,
@@ -457,6 +502,7 @@ def _solve_tail(vol, r0: int, *, nspaces: int, N: int, npair: int,
         if fix_overcount:
             part = part + kappa * cc
         del cc
+    if leftover:
         lsum = lsum + part
         del part
     S, disp, cost = assemble_swta(lsum, s_lo, s_hi, sides=sides, L=L,

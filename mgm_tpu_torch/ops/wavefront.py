@@ -15,11 +15,22 @@ slope*r + c, b] = x[a, r, c, b], fill elsewhere) and `unskew_plain` (its
 inverse) remain: K5's plain version runs the TPU's pipeline through
 them.
 
+K5 on a band `wavefront_band` (csrc/wavefront_band.cu, K5's kernel with
+the template flag BAND) is the dense recursion of a rank's band of
+canonical rows for the mesh path (parallel/halo.py, the counterpart of
+mgm_tpu/parallel/halo.py's XLA recursion): one launch a block of G
+fronts, the recursion's state in the band's output from block to
+block, the band's first row reading the upstream rank's edge row from
+a halo ring and its last row writing the ship track; `bind_band` binds
+its fixed arguments once for a run of blocks; `wavefront_band_plain` is
+its plain version.
+
 A wrapper runs the plain version only because its tensors lie on the
 CPU; on CUDA tensors it launches the kernel or raises.  `launches`
 counts the calls that launched the kernel (never plain runs); one K5
 call is one device launch that steps every front of the group inside
-the kernel, its size from `k5_plan`.
+the kernel, its size from `k5_plan`; one K5-band call one launch that
+steps a block's fronts.
 """
 from __future__ import annotations
 
@@ -49,7 +60,8 @@ OFF_LAG = {
 class _ScanParams(ctypes.Structure):
     _fields_ = (
         [(f, ctypes.c_void_p) for f in ("cc", "out", "mins", "w8", "lo",
-                                        "hi")]
+                                        "hi", "halo", "halo_m", "ship",
+                                        "ship_m")]
         + [(f, ctypes.c_int) for f in ("B", "N", "H", "W", "M", "R", "C",
                                        "L", "slope", "mgm", "knight",
                                        "use_fh", "use_weights",
@@ -60,7 +72,9 @@ class _ScanParams(ctypes.Structure):
            ("off_shift", ctypes.c_int * MAX_OFFS),
            ("dir_rank", ctypes.c_int * MAX_RANKS)]
         + [(f, ctypes.c_int * MAX_PASSES) for f in ("origin", "dr", "dc")]
-        + [("wch", (ctypes.c_int * MAX_OFFS) * MAX_PASSES)])
+        + [("wch", (ctypes.c_int * MAX_OFFS) * MAX_PASSES)]
+        + [(f, ctypes.c_int * MAX_PASSES) for f in ("row0", "col0", "c1")]
+        + [(f, ctypes.c_int) for f in ("r0", "t0", "G")])
 
 
 class _K5Plan(ctypes.Structure):
@@ -79,13 +93,15 @@ K5_SLACK = 2   # bands a plane group beyond those a front keeps busy
 def _lib() -> ctypes.CDLL:
     """The kernel library with this module's entry points typed."""
     lib = _build.load()
-    lib.mgm_wavefront_scan.argtypes = [
-        ctypes.POINTER(_ScanParams), ctypes.POINTER(_K5Plan),
-        ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p]
-    lib.mgm_wavefront_scan.restype = ctypes.c_int
-    lib.mgm_k5_fit.argtypes = [ctypes.POINTER(_ScanParams),
-                               ctypes.POINTER(_K5Plan)]
-    lib.mgm_k5_fit.restype = ctypes.c_int
+    for name in ("mgm_wavefront_scan", "mgm_wavefront_band"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(_ScanParams), ctypes.POINTER(_K5Plan),
+                       ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in ("mgm_k5_fit", "mgm_k5b_fit"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(_ScanParams), ctypes.POINTER(_K5Plan)]
+        fn.restype = ctypes.c_int
     for size_name, st in (("mgm_scan_params_size", _ScanParams),
                           ("mgm_k5_plan_size", _K5Plan)):
         size = getattr(lib, size_name)
@@ -184,34 +200,99 @@ def _fh_msg(Lk, mk, p1w, p2w, win):
     return M - mk
 
 
+def _front_update(cc_t, deps, wts, win, interior, *, p1f, p2f, mgm_div,
+                  dir2off, mgm, use_fh):
+    """One front of the recursion, in _front_update's order of
+    operations (pallas_wavefront.py:177-221): cc_t (M, n, L) the
+    front's costs; deps {offset id: (values (M, n, L), minima (M, n))}
+    its neighbours' rows; wts {offset id: (M, n, 1) weights} or None;
+    win (M, n, L) the FH input's labels or None; interior (M, n) the
+    pixels that aggregate.  Returns (new values, their minima)."""
+    msgs = {}
+    for off, (f, mk) in deps.items():
+        if wts is not None:
+            p1w, p2w = wts[off] * p1f, wts[off] * p2f
+        else:
+            p1w, p2w = p1f, p2f
+        mk = mk[..., None]
+        msgs[off] = (_fh_msg(f, mk, p1w, p2w, win) if use_fh
+                     else _sgm_msg(f, mk, p1w, p2w))
+    if mgm == 2 and wts is None and not use_fh:
+        # update_cost2 halves each term before summing (mgm_core.cc:83-84)
+        e = msgs[dir2off[0]] * 0.5 + msgs[dir2off[1]] * 0.5
+    else:
+        e = msgs[dir2off[0]]
+        for k in range(1, mgm):
+            e = e + msgs[dir2off[k]]
+        if mgm > 1:
+            e = e / mgm_div
+    # a select, never a multiply by the mask: border messages may be
+    # inf - inf = NaN
+    new = torch.where(interior[..., None], cc_t + e, cc_t)
+    return new, new.amin(-1)
+
+
+def _consts(p1, p2, mgm, device):
+    """p1, p2 and the TSGM divisor as 0-dim float32 tensors on `device`
+    (a true division: CUDA would turn a division by a Python number into
+    a reciprocal multiply)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return dict(p1f=torch.tensor(p1, **f32), p2f=torch.tensor(p2, **f32),
+                mgm_div=torch.tensor(float(mgm), **f32))
+
+
+def full_border(B: int, C: int) -> tuple:
+    """Each pass's (first real canonical row, first real column, real
+    columns) of an image with no padding rows."""
+    return ((0, 0, C),) * B
+
+
+def _interior(rows, cols, border, N: int, knight: bool):
+    """(M, n) bool: the pixels (rows[j], cols[j]) (global canonical
+    coordinates, (n,) each or broadcasting) that aggregate in each plane
+    m = b*N + n: below the pass's first real row, and inside its real
+    columns but their 1-pixel border (knight passes: two columns on the
+    left, none on the right; mgm_core.cc:538-541, with mgm_tpu's shifted
+    masks for mesh padding rows, aggregate.py:355-366)."""
+    dev = rows.device
+
+    def per_plane(k):
+        return torch.tensor([g[k] for g in border], device=dev
+                            ).repeat_interleave(N)[:, None]
+
+    row0, col0, c1 = per_plane(0), per_plane(1), per_plane(2)
+    lo, hi = (2, 1) if knight else (1, 2)
+    return ((rows >= row0 + 1) & (cols >= col0 + lo)
+            & (cols <= col0 + c1 - hi))
+
+
 def _scan_fronts(vol, w_sk, lo_sk, hi_sk, *, C, p1, p2, mgm, dir2off,
-                 slope, knight, use_fh, use_weights, fh_restrict):
+                 slope, knight, use_fh, use_weights, fh_restrict,
+                 border=None, N=1):
     """The TPU kernel's front loop over a skewed canonical pass group,
-    with tensor ops over (M, R, L), in _front_update's order of
-    operations (pallas_wavefront.py:177-221).  vol: (M, R, T, L) skewed
-    costs, updated in place into the aggregated volume; w_sk: (n_off*M,
-    R, T, 1) weights per offset rank when use_weights; lo_sk/hi_sk: (M,
-    R, T, 1) int32 label windows when fh_restrict."""
+    with tensor ops over (M, R, L) (_front_update).  vol: (M, R, T, L)
+    skewed costs, updated in place into the aggregated volume; w_sk:
+    (n_off*M, R, T, 1) weights per offset rank when use_weights;
+    lo_sk/hi_sk: (M, R, T, 1) int32 label windows when fh_restrict;
+    border: each pass's (row0, col0, c1), planes b*N + n (None: no
+    padding rows)."""
     M, R, T, L = vol.shape
+    border = border or full_border(M // N, C)
     dev = vol.device
     f32 = dict(dtype=torch.float32, device=dev)
     offs = sorted(set(dir2off))
-    p1f, p2f = torch.tensor(p1, **f32), torch.tensor(p2, **f32)
-    # a true division (a 0-dim tensor on the device: CUDA would turn a
-    # division by a Python number into a reciprocal multiply)
-    mgm_div = torch.tensor(float(mgm), **f32)
+    consts = _consts(p1, p2, mgm, dev)
     jj = torch.arange(R, device=dev)
     lab = torch.arange(L, device=dev)
     mins = torch.full((M, R, T), INF, **f32)
     none_f, none_m = (torch.full((M, R, L), INF, **f32),
                       torch.full((M, R), INF, **f32))
     for t in range(T):
-        cc_t = vol[:, :, t]
         win = None
         if fh_restrict:
             win = ((lab >= lo_sk[:, :, t, 0, None])
                    & (lab <= hi_sk[:, :, t, 0, None]))
-        msgs = {}
+        deps, wts = {}, {} if use_weights else None
         for rank, off in enumerate(offs):
             lag, shift = OFF_LAG[slope][off]
             # fronts before the first are never read by an interior pixel
@@ -219,34 +300,15 @@ def _scan_fronts(vol, w_sk, lo_sk, hi_sk, *, C, p1, p2, mgm, dir2off,
                      else (none_f, none_m))
             if shift:
                 f, mk = shift_fill(f, 1, 1, INF), shift_fill(mk, 1, 1, INF)
+            deps[off] = (f, mk)
             if use_weights:
-                d = w_sk[rank * M:(rank + 1) * M, :, t]     # (M, R, 1)
-                p1w, p2w = d * p1f, d * p2f
-            else:
-                p1w, p2w = p1f, p2f
-            mk = mk[..., None]
-            msgs[off] = (_fh_msg(f, mk, p1w, p2w, win) if use_fh
-                         else _sgm_msg(f, mk, p1w, p2w))
-        if mgm == 2 and not use_weights and not use_fh:
-            # update_cost2 halves each term before summing (mgm_core.cc:83-84)
-            e = msgs[dir2off[0]] * 0.5 + msgs[dir2off[1]] * 0.5
-        else:
-            e = msgs[dir2off[0]]
-            for k in range(1, mgm):
-                e = e + msgs[dir2off[k]]
-            if mgm > 1:
-                e = e / mgm_div
-        ii = t - slope * jj
-        if knight:
-            # no +x offset; the main dir reaches 2 columns left
-            interior = (jj >= 1) & (ii >= 2) & (ii <= C - 1)
-        else:
-            interior = (jj >= 1) & (ii >= 1) & (ii <= C - 2)
-        # a select, never a multiply by the mask: border messages may
-        # be inf - inf = NaN
-        new = torch.where(interior[None, :, None], cc_t + e, cc_t)
+                wts[off] = w_sk[rank * M:(rank + 1) * M, :, t]  # (M, R, 1)
+        new, new_min = _front_update(
+            vol[:, :, t], deps, wts, win,
+            _interior(jj, t - slope * jj, border, N, knight),
+            dir2off=dir2off, mgm=mgm, use_fh=use_fh, **consts)
         vol[:, :, t] = new
-        mins[:, :, t] = new.amin(-1)
+        mins[:, :, t] = new_min
     return vol
 
 
@@ -261,7 +323,7 @@ def _k5_warp_smem(L: int) -> int:
 
 
 def k5_plan(M: int, R: int, C: int, slope: int, L: int, sms: int,
-            fits=None) -> K5Plan:
+            fits=None, G: int | None = None) -> K5Plan:
     """K5's launch plan for M planes of R rows and C columns at `slope`
     with L labels on a card of `sms` SMs: K5Plan(ctas, warps, smem), a
     pure function of its arguments.
@@ -277,16 +339,18 @@ def k5_plan(M: int, R: int, C: int, slope: int, L: int, sms: int,
     `warps` warps the card holds at once (the kernel's occupancy; None:
     `sms`, one CTA an SM), and a shape for which it holds none is
     refused.  `smem`: each warp's ring and count (_k5_warp_smem), as
-    many warps as the CTA's shared memory holds."""
+    many warps as the CTA's shared memory holds.  G: K5 on a band, whose
+    launch steps a block of G fronts: about (C + G) / slope rows of a
+    plane have a column in it (None: K5, every front)."""
     if not (M >= 1 and R >= 1 and C >= 1 and slope >= 1
-            and 1 <= L <= MAX_LABELS and sms >= 1):
+            and 1 <= L <= MAX_LABELS and sms >= 1 and (G is None or G >= 1)):
         raise ValueError(f"k5_plan: {M} planes of {R}x{C}, slope {slope}, "
                          f"L {L}, {sms} SMs")
     per_warp = _k5_warp_smem(L)
     groups = -(-M // (2 if L <= 48 else 1))
     warps = min(K5_WARPS, R, SMEM_PER_CTA // per_warp)
     bands = groups * -(-R // warps)
-    busy = groups * (-(-C // (slope * warps)) + K5_SLACK)
+    busy = groups * (-(-(C + (G or 0)) // (slope * warps)) + K5_SLACK)
     held = sms if fits is None else fits(warps)
     if held < 1:
         raise ValueError(f"k5_plan: the card holds no CTA of {warps} warps "
@@ -347,7 +411,8 @@ FILLS = (INF, 1.0, 0, -1)
 
 def wavefront_scan_plain(cc, w8=None, lo=None, hi=None, *, R, C, maps, wch,
                          p1, p2, mgm, dir2off, slope, knight=False,
-                         use_fh=False, use_weights=False, fh_restrict=False):
+                         use_fh=False, use_weights=False, fh_restrict=False,
+                         border=None):
     """Plain PyTorch version of K5: the TPU's pipeline written out.  Each
     pass's inputs gathered through its map into canonical orientation
     (what to_canonical gives), skewed (skew_plain), the front loop
@@ -374,7 +439,8 @@ def wavefront_scan_plain(cc, w8=None, lo=None, hi=None, *, R, C, maps, wch,
                            FILLS))
     _scan_fronts(vol, w_sk, lo_sk, hi_sk, C=C, p1=p1, p2=p2, mgm=mgm,
                  dir2off=dir2off, slope=slope, knight=knight, use_fh=use_fh,
-                 use_weights=use_weights, fh_restrict=fh_restrict)
+                 use_weights=use_weights, fh_restrict=fh_restrict,
+                 border=border or full_border(B, C), N=N)
     lr = unskew_plain(vol, C, slope).reshape(B, N, R * C, L)
     out = torch.empty((B, N, H * W, L), dtype=cc.dtype, device=cc.device)
     for b in range(B):
@@ -382,52 +448,40 @@ def wavefront_scan_plain(cc, w8=None, lo=None, hi=None, *, R, C, maps, wch,
     return out.reshape(B, N, H, W, L)
 
 
-def wavefront_scan(cc, w8=None, lo=None, hi=None, *, R, C, maps, wch, p1, p2,
-                   mgm, dir2off, slope, knight=False, use_fh=False,
-                   use_weights=False, fh_restrict=False):
-    """K5: the MGM recursion over one canonical pass group of B passes,
-    read from and written to image layout.
-
-    cc: (N, H, W, L) float32 costs.
-    w8: (N, H, W, 8) float32 edge weights when use_weights.
-    lo/hi: (N, H, W) int32 label windows when fh_restrict.
-    R, C: the canonical rows and columns.  maps: each pass's (origin,
-      dr, dc) (aggregate.pass_map): canonical pixel (r, c) of image n
-      lies at image pixel n*H*W + origin + r*dr + c*dc.  wch: each
-      pass's weight channel (w8's last axis) of each offset rank
-      (offsets in ascending id order).  Plane m = b*N + n of the scan
-      is pass b of image n.
-    dir2off: canonical offset id per coupled dir (length mgm).
-    Returns out (B, N, H, W, L) float32: each pass's aggregated volume
-    in image orientation (border pixels hold their costs).
-    CPU tensors take the plain version; CUDA tensors launch
-    csrc/wavefront.cu once on the current stream, with k5_plan's sizes
-    for the shape and the card; a launch the card refuses raises."""
-    kw = dict(R=R, C=C, maps=maps, wch=wch, p1=p1, p2=p2, mgm=mgm,
-              dir2off=dir2off, slope=slope, knight=knight, use_fh=use_fh,
-              use_weights=use_weights, fh_restrict=fh_restrict)
-    dev = cc.device
-    if dev.type == "cpu":
-        return wavefront_scan_plain(cc, w8, lo, hi, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"wavefront_scan: unsupported device {dev}")
-    if cc.ndim != 4:
-        raise ValueError(f"wavefront_scan: want (N, H, W, L), got "
-                         f"{tuple(cc.shape)}")
-    N, H, W, L = cc.shape
-    B = len(maps)
-    M = B * N
+def _limits(name, *, mgm, dir2off, L, slope) -> tuple:
+    """The offsets (ascending ids) of a launch within the kernel's
+    limits; outside them raises."""
     offs = sorted(set(dir2off))
     if (len(dir2off) != mgm or not 1 <= mgm <= MAX_RANKS
             or not 1 <= L <= MAX_LABELS or slope not in OFF_LAG
             or any(o not in OFF_LAG[slope] for o in offs)):
-        raise ValueError(f"wavefront_scan: outside the kernel's limits "
-                         f"(mgm {mgm}, dir2off {dir2off}, L {L}, slope "
-                         f"{slope})")
+        raise ValueError(f"{name}: outside the kernel's limits (mgm {mgm}, "
+                         f"dir2off {dir2off}, L {L}, slope {slope})")
+    return offs
+
+
+def _scan_params(name, cc, w8, lo, hi, out, mins, *, R, C, maps, wch, p1,
+                 p2, mgm, dir2off, slope, knight, use_fh, use_weights,
+                 fh_restrict, border) -> _ScanParams:
+    """K5's parameter block for CUDA tensors, every argument checked."""
+    dev = cc.device
+    if cc.ndim != 4:
+        raise ValueError(f"{name}: want (N, H, W, L), got "
+                         f"{tuple(cc.shape)}")
+    N, H, W, L = cc.shape
+    B = len(maps)
+    M = B * N
+    offs = _limits(name, mgm=mgm, dir2off=dir2off, L=L, slope=slope)
     _check_maps(maps, wch, R, C, H, W, len(offs))
+    border = border or full_border(B, C)
+    if len(border) != B or not all(0 <= r0 < R and 0 <= c0 and 1 <= c1
+                                   and c0 + c1 <= C
+                                   for r0, c0, c1 in border):
+        raise ValueError(f"{name}: border {border} of {B} passes of "
+                         f"{R}x{C}")
     _check("cc", cc, (N, H, W, L), (torch.float32,), dev)
-    out = torch.empty((B, N, H, W, L), dtype=torch.float32, device=dev)
-    mins = torch.empty((M, R, C), dtype=torch.float32, device=dev)
+    _check("out", out, (B, N, H, W, L), (torch.float32,), dev)
+    _check("mins", mins, (M, R, C), (torch.float32,), dev)
     p = _ScanParams(cc=cc.data_ptr(), out=out.data_ptr(),
                     mins=mins.data_ptr(), B=B, N=N, H=H, W=W, M=M, R=R, C=C,
                     L=L, slope=slope, mgm=mgm, knight=int(knight),
@@ -446,19 +500,69 @@ def wavefront_scan(cc, w8=None, lo=None, hi=None, *, R, C, maps, wch, p1, p2,
         p.off_shift[k] = int(shift)
     for j, off in enumerate(dir2off):
         p.dir_rank[j] = offs.index(off)
-    for b, ((o, dr, dc), ch) in enumerate(zip(maps, wch)):
+    for b, ((o, dr, dc), ch, (r0, c0, c1)) in enumerate(zip(maps, wch,
+                                                            border)):
         p.origin[b], p.dr[b], p.dc[b] = o, dr, dc
+        p.row0[b], p.col0[b], p.c1[b] = r0, c0, c1
         for k, c in enumerate(ch):
             p.wch[b][k] = c
-    inst = (dev.index, bool(use_fh), bool(use_weights), L)
+    return p
 
-    def fits(warps):  # the card's occupancy for this instance and size
-        key = inst + (warps,)
+
+def _fits(entry: str, p: _ScanParams, inst: tuple, L: int):
+    """The card's occupancy query of a K5 entry (`entry`: mgm_k5_fit or
+    mgm_k5b_fit) for the instance of p: fits(warps), CTAs of that many
+    warps the card holds at once."""
+    def fits(warps):
+        key = (entry,) + inst + (warps,)
         if key not in _FITS:
-            _FITS[key] = _lib().mgm_k5_fit(ctypes.byref(p), ctypes.byref(
+            _FITS[key] = getattr(_lib(), entry)(ctypes.byref(p), ctypes.byref(
                 _K5Plan(1, warps, warps * _k5_warp_smem(L))))
         return _FITS[key]
+    return fits
 
+
+def wavefront_scan(cc, w8=None, lo=None, hi=None, *, R, C, maps, wch, p1, p2,
+                   mgm, dir2off, slope, knight=False, use_fh=False,
+                   use_weights=False, fh_restrict=False, border=None):
+    """K5: the MGM recursion over one canonical pass group of B passes,
+    read from and written to image layout.
+
+    cc: (N, H, W, L) float32 costs.
+    w8: (N, H, W, 8) float32 edge weights when use_weights.
+    lo/hi: (N, H, W) int32 label windows when fh_restrict.
+    R, C: the canonical rows and columns.  maps: each pass's (origin,
+      dr, dc) (aggregate.pass_map): canonical pixel (r, c) of image n
+      lies at image pixel n*H*W + origin + r*dr + c*dc.  wch: each
+      pass's weight channel (w8's last axis) of each offset rank
+      (offsets in ascending id order).  Plane m = b*N + n of the scan
+      is pass b of image n.
+    dir2off: canonical offset id per coupled dir (length mgm).
+    border: each pass's (first real canonical row, first real column,
+      real columns) when mesh padding rows lie in the image
+      (aggregate._pad_geometry), else None (0, 0, C).
+    Returns out (B, N, H, W, L) float32: each pass's aggregated volume
+    in image orientation (border pixels hold their costs).
+    CPU tensors take the plain version; CUDA tensors launch
+    csrc/wavefront.cu once on the current stream, with k5_plan's sizes
+    for the shape and the card; a launch the card refuses raises."""
+    kw = dict(R=R, C=C, maps=maps, wch=wch, p1=p1, p2=p2, mgm=mgm,
+              dir2off=dir2off, slope=slope, knight=knight, use_fh=use_fh,
+              use_weights=use_weights, fh_restrict=fh_restrict,
+              border=border)
+    dev = cc.device
+    if dev.type == "cpu":
+        return wavefront_scan_plain(cc, w8, lo, hi, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"wavefront_scan: unsupported device {dev}")
+    N, H, W, L = cc.shape
+    B = len(maps)
+    M = B * N
+    out = torch.empty((B, N, H, W, L), dtype=torch.float32, device=dev)
+    mins = torch.empty((M, R, C), dtype=torch.float32, device=dev)
+    p = _scan_params("wavefront_scan", cc, w8, lo, hi, out, mins, **kw)
+    fits = _fits("mgm_k5_fit", p, (dev.index, bool(use_fh),
+                                   bool(use_weights), L), L)
     with torch.cuda.device(dev):
         plan = k5_plan(M, R, C, slope, L, _sms(dev.index), fits)
         gdone, epoch = _gdone(dev, plan.ctas)
@@ -477,3 +581,204 @@ def wavefront_scan(cc, w8=None, lo=None, hi=None, *, R, C, maps, wch, p1, p2,
 
 
 wavefront_scan.launches = 0
+
+
+# ----------------------------------------------------------- K5 on a band ----
+
+def _gather(x, pix, rows_cols):
+    """(B*N, n, k) values of the (B or 1, N, H*W, k) image-layout tensor
+    x at each pass's canonical pixels rows_cols (indices r*C + c, (n,)):
+    pass b's through pix[b]; x's pass axis of 1 is every pass's."""
+    B = pix.shape[0]
+    return torch.stack([x[b if x.shape[0] > 1 else 0][:, pix[b][rows_cols]]
+                        for b in range(B)]).flatten(0, 1)
+
+
+def wavefront_band_plain(cc, w8, lo, hi, out, mins, halo=None, ship=None, *,
+                         t0, G, r0, R, C, maps, wch, p1, p2, mgm, dir2off,
+                         slope, knight=False, use_fh=False, use_weights=False,
+                         fh_restrict=False, border=None):
+    """Plain PyTorch version of K5 on a band (the port's counterpart of
+    mgm_tpu/parallel/halo.py's _halo_scan): the fronts t0 .. t0 + G - 1
+    of a pass group on the band's canonical rows, whose local row r is
+    global canonical row r0 + r (front t holds its column t - slope*(r0
+    + r)).  cc, w8, lo, hi: the band's image-layout inputs as K5 takes
+    them, R x C canonical pixels through `maps`; out (B, N, H, W, L) and
+    mins (M, R, C): the recursion so far (every earlier front of the
+    band), updated in place; halo: (values (2G, M, L), minima (2G, M))
+    of the row above the band (global row r0 - 1), its front s at entry
+    s mod 2G, complete for the block's fronts and the 4 before them, or
+    None (r0 == 0: no row above); ship: the same (G, M, L) and (G, M)
+    tensors for the band's last row at the block's fronts, written
+    where that row has a column, or None.  border: as wavefront_scan's,
+    in global canonical rows."""
+    N, H, W, L = cc.shape
+    B = len(maps)
+    M = B * N
+    dev = cc.device
+    _check_maps(maps, wch, R, C, H, W, len(set(dir2off)))
+    border = border or full_border(B, C)
+    pix = _pixels(maps, R, C, dev)
+    consts = _consts(p1, p2, mgm, dev)
+    lab = torch.arange(L, device=dev)
+    ccf, outf = cc.reshape(1, N, H * W, L), out.reshape(B, N, H * W, L)
+    w8f = w8.reshape(1, N, H * W, 8) if use_weights else None
+    lof, hif = ((x.reshape(1, N, H * W, 1) for x in (lo, hi))
+                if fh_restrict else (None, None))
+    offs = sorted(set(dir2off))
+    rr = torch.arange(R, device=dev)
+    for t in range(t0, t0 + G):
+        cols = t - slope * (r0 + rr)
+        ok = (cols >= 0) & (cols < C)
+        if not bool(ok.any()):
+            continue
+        rows, cols = rr[ok], cols[ok]
+        idx = rows * C + cols
+
+        def at(r, c):
+            """Values and minima of the band's pixels (r, c) (rows r >= 0
+            and columns in the image where `valid`), +inf elsewhere."""
+            valid = (r >= 0) & (c >= 0) & (c < C)
+            rc = (r.clamp(0, R - 1) * C + c.clamp(0, C - 1))
+            f = _gather(outf, pix, rc)
+            mk = mins.reshape(M, R * C)[:, rc]
+            return (torch.where(valid[None, :, None], f, INF),
+                    torch.where(valid[None], mk, INF))
+
+        deps, wts = {}, {} if use_weights else None
+        for rank, off in enumerate(offs):
+            lag, shift = OFF_LAG[slope][off]
+            if not shift:       # the row's own previous column
+                f, mk = at(rows, cols - 1)
+            else:               # the row above, column c + slope - lag
+                c_up = cols + slope - lag
+                f, mk = at(rows - 1, c_up)
+                top = rows == 0
+                if halo is not None and bool(top.any()):
+                    # the band's first row reads the rank upstream's
+                    # row at front t - lag
+                    e = (t - lag) % (2 * G)
+                    inside = top & (c_up >= 0) & (c_up < C)
+                    f = torch.where(inside[None, :, None],
+                                    halo[0][e][:, None], f)
+                    mk = torch.where(inside[None], halo[1][e][:, None], mk)
+            deps[off] = (f, mk)
+            if use_weights:
+                wts[off] = torch.stack([w8f[0][:, pix[b][idx], ch[rank]]
+                                        for b, ch in enumerate(wch)]
+                                       ).reshape(M, -1, 1)
+        win = None
+        if fh_restrict:
+            win = ((lab >= _gather(lof, pix, idx))
+                   & (lab <= _gather(hif, pix, idx)))
+        new, new_min = _front_update(
+            _gather(ccf, pix, idx), deps, wts, win,
+            _interior(r0 + rows, cols, border, N, knight),
+            dir2off=dir2off, mgm=mgm, use_fh=use_fh, **consts)
+        for b in range(B):
+            outf[b][:, pix[b][idx]] = new[b * N:(b + 1) * N]
+        mins.reshape(M, R * C)[:, idx] = new_min
+        if ship is not None and bool(rows[-1] == R - 1):
+            ship[0][t - t0] = new[:, -1]
+            ship[1][t - t0] = new_min[:, -1]
+    return out
+
+
+def bind_band(kernel, cc, w8, lo, hi, out, mins, *, halo=None, ship=None,
+              r0, G, share=1, **kw):
+    """`kernel` (K5 on a band, wavefront_band, or its plain version) with
+    every argument but the block's first front bound, for a run of
+    blocks on one band: returns step(t0), which runs the fronts t0 ..
+    t0 + G - 1 (arguments as in wavefront_band_plain; G >= 4, the
+    deepest lag; `share`: the ranks whose blocks run on the card at
+    once, each planned on its share of the card).  K5 on a band on CUDA
+    tensors builds its parameter block, plan and occupancy query once;
+    anything else is called with the arguments as they are."""
+    if kernel is wavefront_band and cc.device.type == "cuda":
+        return _band_launcher(cc, w8, lo, hi, out, mins, halo=halo,
+                              ship=ship, r0=r0, G=G, share=share, **kw)
+
+    def step(t0: int) -> None:
+        kernel(cc, w8, lo, hi, out, mins, halo, ship, t0=t0, G=G, r0=r0,
+               **kw)
+
+    return step
+
+
+def _band_launcher(cc, w8, lo, hi, out, mins, *, halo, ship, r0, G, share,
+                   **kw):
+    """K5 on a band on CUDA tensors for a run of blocks: the parameter
+    block, the plan (k5_plan on 1/share of the card, blocks of G fronts)
+    and the occupancy query made once; returns step(t0), which launches
+    csrc/wavefront_band.cu on the current stream of the tensors' card."""
+    dev = cc.device
+    N, H, W, L = cc.shape
+    R, C, slope = kw["R"], kw["C"], kw["slope"]
+    M = len(kw["maps"]) * N
+    p = _scan_params("wavefront_band", cc, w8, lo, hi, out, mins, **kw)
+    if G < 4 or r0 < 0 or (halo is None) != (r0 == 0):
+        raise ValueError(f"wavefront_band: blocks of {G} fronts, band from "
+                         f"row {r0}, halo {halo is not None}")
+    for name, pair, steps in (("halo", halo, 2 * G), ("ship", ship, G)):
+        if pair is not None:
+            _check(name, pair[0], (steps, M, L), (torch.float32,), dev)
+            _check(name + "_m", pair[1], (steps, M), (torch.float32,), dev)
+            setattr(p, name, pair[0].data_ptr())
+            setattr(p, name + "_m", pair[1].data_ptr())
+    p.r0, p.G = r0, G
+    T = C + slope * (r0 + R - 1)   # the band's last front + 1
+    fits = _fits("mgm_k5b_fit", p, (dev.index, bool(kw["use_fh"]),
+                                    bool(kw["use_weights"]), L), L)
+    if not 1 <= share <= _sms(dev.index):
+        raise ValueError(f"wavefront_band: {share} ranks on one card")
+    with torch.cuda.device(dev):
+        plan = k5_plan(M, R, C, slope, L, _sms(dev.index) // share,
+                       lambda w: fits(w) // share, G=G)
+    kplan = _K5Plan(*plan)
+    lib = _lib()
+    # the parameter block holds raw pointers: the tensors live as long
+    # as the launcher
+    tensors = (cc, w8, lo, hi, out, mins, halo, ship)
+
+    def step(t0: int) -> None:
+        if not 0 <= t0 < T:
+            raise ValueError(f"wavefront_band: front {t0} of {T}")
+        p.t0 = t0
+        with torch.cuda.device(dev):
+            gdone, epoch = _gdone(dev, plan.ctas)
+            err = lib.mgm_wavefront_band(
+                ctypes.byref(p), ctypes.byref(kplan), gdone.data_ptr(),
+                epoch, _stream(dev))
+        if err:
+            why = ("the card cannot hold its CTAs at once" if err == -1
+                   else f"CUDA error {err}")
+            raise RuntimeError(f"wavefront_band: {why}: {plan} for {M} "
+                               f"planes of {R}x{C} from row {r0}, slope "
+                               f"{slope}, L {L}, fronts {t0} + {G}")
+        wavefront_band.launches += 1
+
+    step.tensors = tensors
+    return step
+
+
+def wavefront_band(cc, w8, lo, hi, out, mins, halo=None, ship=None, *, t0,
+                   G, r0, share=1, **kw):
+    """K5 on a band: the fronts t0 .. t0 + G - 1 (arguments as in
+    wavefront_band_plain).  CPU tensors take the plain version; CUDA
+    tensors launch csrc/wavefront_band.cu once on the current stream, the
+    block's fronts stepped inside the kernel; a launch the card refuses
+    raises.  A run of blocks on one band takes bind_band, which builds
+    the launch once.  `launches` counts the blocks launched on the
+    card."""
+    dev = cc.device
+    if dev.type == "cpu":
+        return wavefront_band_plain(cc, w8, lo, hi, out, mins, halo, ship,
+                                    t0=t0, G=G, r0=r0, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"wavefront_band: unsupported device {dev}")
+    _band_launcher(cc, w8, lo, hi, out, mins, halo=halo, ship=ship, r0=r0,
+                   G=G, share=share, **kw)(t0)
+    return out
+
+
+wavefront_band.launches = 0

@@ -45,8 +45,6 @@ as on one device.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from ..ops import cuda_fused
@@ -102,10 +100,12 @@ def sharded_fused_planes(lefts, rights, *, mesh, sides, L: int, groups,
                common=dict(L=L, mgm=mgm, mode=mode, tmax=tmax, p1=p1,
                            p2=p2, kappa=kappa, use_fh=use_fh,
                            fh_restrict=fh_restrict))
-    vols = {k: torch.empty((nspaces * N, min(rl, H - k * rl), C, L),
-                           dtype=torch.float32, device=mesh.devices[k])
-            for k in mesh.local}
-    run.join(into_ranks=True)   # the inputs and volumes are made
+    vols = {}
+    for k in mesh.local:
+        y0, y1 = mesh.rows(H, k)
+        vols[k] = torch.empty((nspaces * N, y1 - y0, C, L),
+                              dtype=torch.float32, device=mesh.devices[k])
+    mesh.join(into_ranks=True)   # the inputs and volumes are made
     first = 0
     for g, group in enumerate(groups):
         parts = {k: v[first * N:(first + len(group[1])) * N]
@@ -118,8 +118,54 @@ def sharded_fused_planes(lefts, rights, *, mesh, sides, L: int, groups,
                 run.stagger(kw, parts, len(sides), accumulate=i > 0)
             else:
                 run.lockstep(kw, parts, accumulate=i > 0)
-    run.join(into_ranks=False)  # the volumes are written
+    mesh.join(into_ranks=False)  # the volumes are written
     return {k: (k * rl, v) for k, v in vols.items()}, nspaces
+
+
+def staggered(mesh, *, flow: int, nb: int, G: int, live, step, ship,
+              halo) -> None:
+    """A one-way pipeline of nb blocks of G steps over the ranks (K4's
+    A/B sub-launches here, K5 on a band in halo.py): rank k runs block
+    b at superstep b + q, q its place along `flow` (+1: rank k + 1 is
+    downstream), with step[k](b * G) on its stream, where live[k] (its
+    (first, last) step with a pixel, None: no row) says it has a pixel
+    in it; then block b's track ship[k] (a tensor or tuple of tensors,
+    or None: no rank downstream takes it) goes into slot b mod 2 of the
+    downstream rank's halo ring halo[k] (the same, 2G entries on axis
+    0), which its block b reads next superstep (and block b - 1's in
+    the other slot)."""
+    n = mesh.size
+
+    def block(k, sigma):
+        """Rank k's block at superstep sigma, None where it has no pixel
+        in it."""
+        if live[k] is None:
+            return None
+        b = sigma - (k if flow > 0 else n - 1 - k)
+        s_lo, s_hi = live[k]
+        ok = 0 <= b < nb and b * G <= s_hi and s_lo < (b + 1) * G
+        return b if ok else None
+
+    def slot(ring, b):
+        parts = tuple(a[b % 2 * G:(b % 2 + 1) * G]
+                      for a in (ring if isinstance(ring, tuple) else (ring,)))
+        return parts if isinstance(ring, tuple) else parts[0]
+
+    for sigma in range(nb + n - 1):
+        for k in step:
+            b = block(k, sigma)
+            if b is not None:
+                with mesh.on(k):
+                    step[k](b * G)
+        sent = {k: ship[k] if ship[k] is not None
+                and block(k, sigma) is not None else None
+                for k in mesh.local}
+        into = {}
+        for k in mesh.local:
+            b = block(k - flow, sigma) if 0 <= k - flow < n else None
+            into[k] = (None if b is None or halo[k] is None
+                       else slot(halo[k], b))
+        mesh.shift(sent, flow, into)
 
 
 def _sub_launch(kw: dict, space: int, ns: int):
@@ -153,28 +199,6 @@ class _Run:
         self.inputs = {k: {name: None if a is None else a.to(mesh.devices[k])
                            for name, a in inputs.items()}
                        for k in mesh.local}
-        # the ranks whose blocks run on each rank's card at once (K4's
-        # plan gives each its share of the card)
-        self.share = {k: sum(mesh.devices[j] == mesh.devices[k]
-                             for j in mesh.local) for k in mesh.local}
-
-    def on(self, k):
-        """The context in which rank k's work is queued: its stream."""
-        s = self.mesh.stream(k)
-        return contextlib.nullcontext() if s is None else torch.cuda.stream(s)
-
-    def join(self, *, into_ranks: bool) -> None:
-        """Order the ranks' streams after the current streams of their
-        cards (into_ranks), or the current streams after the ranks'."""
-        for k in self.mesh.local:
-            s = self.mesh.stream(k)
-            if s is None:
-                continue
-            cur = torch.cuda.current_stream(self.mesh.devices[k])
-            if into_ranks:
-                s.wait_stream(cur)
-            else:
-                cur.wait_stream(s)
 
     def _state(self, k, D, Ml, rows):
         f32 = dict(dtype=torch.float32, device=self.mesh.devices[k])
@@ -182,13 +206,16 @@ class _Run:
         return (torch.full((D + 1, Ml, rows, L), INF, **f32),
                 torch.full((D + 1, Ml, rows), INF, **f32))
 
-    def _steps(self, kw, planes, k) -> tuple[int, int]:
+    def _steps(self, kw, planes, k):
         """The scan steps on which band k has a pixel in the space of
-        `planes` (one a0 and sign): [first, last]."""
+        `planes` (one a0 and sign): (first, last), None for a rank
+        without a row."""
         slope, fstep = kw["slope"], kw["fstep"]
         a0, ssgn = planes[0][4], planes[0][5]
-        r_lo, r_hi = k * self.rl, min((k + 1) * self.rl, self.H) - 1
-        ends = [a0 - ssgn * slope * r for r in (r_lo, r_hi)]
+        r_lo, r_hi = self.mesh.rows(self.H, k)
+        if r_lo == r_hi:
+            return None
+        ends = [a0 - ssgn * slope * r for r in (r_lo, r_hi - 1)]
         t_lo, t_hi = min(ends), max(ends) + fstep * (self.C - 1)
         if kw["reverse"]:
             T = fstep * (self.C - 1) + slope * (self.H - 1) + 1
@@ -212,7 +239,7 @@ class _Run:
                 if any(p[6] for p in planes):
                     raise ValueError("a folded plane without recursions")
                 for k, o in out.items():
-                    with self.on(k):
+                    with mesh.on(k):
                         if accumulate:
                             o.add_(0.0)
                         else:
@@ -232,43 +259,22 @@ class _Run:
                         nsteps=G, ship_row=self.rl - 1 if down else 0,
                         out_off=0)
             halo, ship, step = {}, {}, {}
+            live = [self._steps(kw, planes, k) for k in range(n)]
             for k in mesh.local:
-                with self.on(k):
-                    hist, mins = self._state(k, D, Ml, self.rl)
+                with mesh.on(k):
                     f32 = dict(dtype=torch.float32, device=mesh.devices[k])
                     halo[k] = torch.full((2 * G, Ml, L), INF, **f32)
                     ship[k] = torch.full((G, Ml, L), INF, **f32)
+                    if live[k] is None:   # a rank without a row
+                        continue
+                    hist, mins = self._state(k, D, Ml, self.rl)
                     step[k] = cuda_fused.bind_block(
                         self.kernel, **self.inputs[k], out=out[k],
                         hist=hist, mins=mins, r0=k * self.rl,
-                        halo=halo[k], ship=ship[k], share=self.share[k],
-                        **args)
-            live = [self._steps(kw, planes, k) for k in range(n)]
-
-            def block(k, sigma):
-                """Rank k's block at superstep sigma, None where it has
-                no pixel in it."""
-                b = sigma - (k if down else n - 1 - k)
-                s_lo, s_hi = live[k]
-                ok = 0 <= b < nb and b * G <= s_hi and s_lo < (b + 1) * G
-                return b if ok else None
-
-            for sigma in range(nb + n - 1):
-                for k in mesh.local:
-                    b = block(k, sigma)
-                    if b is not None:
-                        with self.on(k):
-                            step[k](b * G)
-                # block b's track into the downstream rank's halo slot
-                # b % 2, which its block b reads next superstep
-                sent = {k: ship[k] if block(k, sigma) is not None else None
-                        for k in mesh.local}
-                into = {}
-                for k in mesh.local:
-                    b = block(k - flow, sigma) if 0 <= k - flow < n else None
-                    into[k] = (None if b is None
-                               else halo[k][b % 2 * G:(b % 2 + 1) * G])
-                mesh.shift(sent, flow, into)
+                        halo=halo[k], ship=ship[k],
+                        share=mesh.sharing(k), **args)
+            staggered(mesh, flow=flow, nb=nb, G=G, live=live, step=step,
+                      ship=ship, halo=halo)
 
     def lockstep(self, kw, parts, *, accumulate: bool):
         """One V or parity launch in lockstep blocks over apron-extended
@@ -285,12 +291,13 @@ class _Run:
                     accumulate=accumulate, G=B, nsteps=B, out_off=B)
         state, step = {}, {}
         for k in mesh.local:
-            with self.on(k):
+            with mesh.on(k):
                 state[k] = self._state(k, D, Ml, rows)
-                step[k] = cuda_fused.bind_block(
-                    self.kernel, **self.inputs[k], out=parts[k],
-                    hist=state[k][0], mins=state[k][1], r0=k * self.rl - B,
-                    share=self.share[k], **args)
+                if parts[k].shape[1]:   # a rank without a row runs none
+                    step[k] = cuda_fused.bind_block(
+                        self.kernel, **self.inputs[k], out=parts[k],
+                        hist=state[k][0], mins=state[k][1],
+                        r0=k * self.rl - B, share=mesh.sharing(k), **args)
 
         def ring_rows(start):
             """Ring rows start .. start + B - 1 of each rank: its hist
@@ -302,8 +309,8 @@ class _Run:
         first, last = ring_rows(B), ring_rows(self.rl)
         above, below = ring_rows(0), ring_rows(self.rl + B)
         for b in range(-(-T // B)):
-            for k in mesh.local:
-                with self.on(k):
+            for k in step:
+                with mesh.on(k):
                     step[k](b * B)
             # the aprons' ring rows from the neighbours' band rows
             mesh.shift(first, -1, below)

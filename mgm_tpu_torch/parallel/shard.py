@@ -1,8 +1,10 @@
 """The 1-D row mesh (counterpart of mgm_tpu/parallel/shard.py).
 
 A mesh is an ordered list of ranks, one torch device each; rank k holds
-the image rows [k * Rl, (k + 1) * Rl), Rl = ceil(H / n) (the last band
-may be short).  One process drives every rank of a mesh from
+the image rows [k * Rl, (k + 1) * Rl) of the H, Rl = ceil(H / n): the
+last bands may be short or empty (H = 9 over 4 ranks: 3, 3, 3 and 0
+rows), where mgm_tpu pads fake bottom rows (mgm_tpu/stereo.py:698-700);
+a rank without a row runs nothing and sends nothing.  One process drives every rank of a mesh from
 `make_mesh`, as one JAX controller drives every local device; a device
 may repeat, so `make_mesh(devices=["cuda:0"] * 4)` runs four ranks on
 one card and `["cpu"] * 2` two on the CPU.  On CUDA devices each rank
@@ -20,10 +22,15 @@ does not know which kind of mesh it runs on:
   shift(tensors, step, out)   rank k's tensor is copied into rank
                               k + step's `out`;
   gather_rows(bands, H)       every rank's band of an (N, rows, ...)
-                              map, concatenated in rank order.
+                              map, concatenated in rank order;
+  cols_to_rows(parts, H, W)   rank k's (N, H, w_k, ...) band of image
+                              columns, cut into every rank's rows: rank
+                              j's (N, h_j, W, ...) row band.
 
-The dense XLA mesh path of mgm_tpu (`sharded_solve`, `solve_tiled`,
-`halo.halo_aggregate`) is not ported yet (ROADMAP item 10a).
+The dense runner (halo.py) sees the same operations.  `sharded_solve`
+and `solve_tiled` are mgm_tpu's dense mesh entry points: mgm_solve with
+the recursion row-sharded by halo.py, the S assembly and the WTA on
+each rank's band, the maps gathered.
 """
 from __future__ import annotations
 
@@ -64,13 +71,16 @@ class RowMesh:
         return 0 in self.local
 
     def band(self, H: int) -> int:
-        """Rows a rank: ceil(H / n).  Every rank must hold a real row."""
-        n = self.size
-        rl = -(-H // n)
-        if (n - 1) * rl >= H:
-            raise ValueError(f"{H} rows leave rank {n - 1} of {n} without a "
-                             f"row ({rl} rows a rank)")
-        return rl
+        """Rows a rank: ceil(H / n) (the last ranks' bands may be short
+        or empty)."""
+        if H < 1:
+            raise ValueError(f"a mesh shards at least one row, not {H}")
+        return -(-H // self.size)
+
+    def rows(self, H: int, k: int) -> tuple[int, int]:
+        """Rank k's band of H rows (or columns): [y0, y1), maybe empty."""
+        rl = self.band(H)
+        return min(k * rl, H), min((k + 1) * rl, H)
 
     def stream(self, k: int):
         """Rank k's CUDA stream (made at first use) when this process
@@ -82,6 +92,29 @@ class RowMesh:
         if k not in self._streams:
             self._streams[k] = torch.cuda.Stream(self.devices[k])
         return self._streams[k]
+
+    def on(self, k: int):
+        """The context in which rank k's work is queued: its stream."""
+        return _on(self.stream(k))
+
+    def join(self, *, into_ranks: bool) -> None:
+        """Order the local ranks' streams after the current streams of
+        their cards (into_ranks), or the current streams after the
+        ranks'."""
+        for k in self.local:
+            s = self.stream(k)
+            if s is None:
+                continue
+            cur = torch.cuda.current_stream(self.devices[k])
+            if into_ranks:
+                s.wait_stream(cur)
+            else:
+                cur.wait_stream(s)
+
+    def sharing(self, k: int) -> int:
+        """The local ranks whose work runs on rank k's card at once (a
+        kernel that needs all its CTAs resident plans for its share)."""
+        return sum(self.devices[j] == self.devices[k] for j in self.local)
 
     def shift(self, tensors: dict, step: int, out: dict) -> None:
         """Copy each local rank k's tensors[k] into out[k + step] (step
@@ -112,6 +145,47 @@ class RowMesh:
                 waits.append((sj, sk))
         for sj, sk in waits:
             sj.wait_stream(sk)
+
+    def cols_to_rows(self, parts: dict, H: int, W: int) -> dict:
+        """The one collective from column bands to row bands: each local
+        rank k's parts[k], the (N, H, w_k, ...) band of image columns
+        rows(W, k), becomes rank j's (N, h_j, W, ...) band of image rows
+        rows(H, j), each piece copied once.  In one process a piece is
+        copied on the receiver's stream after the sender's stream has
+        reached it, and the sender's stream goes on after the copy, so
+        the host never waits; under a group the pieces go as isend /
+        irecv pairs (gloo through host memory).  Returns {local rank:
+        row band}."""
+        if self.group is not None:
+            return _p2p_cols_to_rows(self, parts, H, W)
+        n = self.size
+        out = {}
+        ref = parts[self.local[0]]
+        for j in self.local:
+            y0, y1 = self.rows(H, j)
+            with self.on(j):   # the receiver's stream owns its band
+                out[j] = torch.empty((ref.shape[0], y1 - y0, W)
+                                     + ref.shape[3:], dtype=ref.dtype,
+                                     device=self.devices[j])
+        waits = []
+        for j in self.local:
+            y0, y1 = self.rows(H, j)
+            sj = self.stream(j)
+            for k in range(n):
+                x0, x1 = self.rows(W, k)
+                if x0 == x1 or y0 == y1:
+                    continue
+                sk = self.stream(k)
+                if sj is not None:
+                    sj.wait_stream(sk)
+                with _on(sj):
+                    out[j][:, :, x0:x1].copy_(parts[k][:, y0:y1],
+                                              non_blocking=True)
+                if sk is not None:
+                    waits.append((sk, sj))
+        for sk, sj in waits:
+            sk.wait_stream(sj)
+        return out
 
     def gather_rows(self, bands: dict, H: int, dim: int = 1):
         """The (..., H, ...) map from every rank's band of it (rows on
@@ -195,6 +269,41 @@ def _p2p_shift(mesh: RowMesh, tensors: dict, step: int, out: dict):
         t.copy_(buf)
 
 
+def _p2p_cols_to_rows(mesh: RowMesh, parts: dict, H: int, W: int) -> dict:
+    """cols_to_rows under a group: this rank's piece for every other rank
+    by isend, every other rank's piece for it by irecv, its own copied."""
+    import torch.distributed as dist
+
+    (k,) = mesh.local
+    mine = parts[k]
+    y0, y1 = mesh.rows(H, k)
+    out = torch.empty((mine.shape[0], y1 - y0, W) + mine.shape[3:],
+                      dtype=mine.dtype, device=mesh.devices[k])
+    x0, x1 = mesh.rows(W, k)
+    reqs, recv = [], []
+    for j in range(mesh.size):
+        r0, r1 = mesh.rows(H, j)
+        c0, c1 = mesh.rows(W, j)
+        if j == k:
+            if y1 > y0 and x1 > x0:
+                out[:, :, x0:x1].copy_(mine[:, y0:y1])
+            continue
+        if r1 > r0 and x1 > x0:
+            reqs.append(dist.isend(_staged(mine[:, r0:r1], mesh), j,
+                                   group=mesh.group))
+        if y1 > y0 and c1 > c0:
+            buf = torch.empty((mine.shape[0], y1 - y0, c1 - c0)
+                              + mine.shape[3:], dtype=mine.dtype,
+                              device=_staged_device(mine, mesh))
+            reqs.append(dist.irecv(buf, j, group=mesh.group))
+            recv.append((slice(c0, c1), buf))
+    for r in reqs:
+        r.wait()
+    for cols, buf in recv:
+        out[:, :, cols].copy_(buf)
+    return {k: out}
+
+
 def _all_gather_rows(mesh: RowMesh, bands: dict, H: int, dim: int):
     import torch.distributed as dist
 
@@ -212,15 +321,45 @@ def _all_gather_rows(mesh: RowMesh, bands: dict, H: int, dim: int):
     return torch.cat(parts, dim).narrow(dim, 0, H).to(mesh.device)
 
 
-def sharded_solve(*args, **kwargs):
-    """The dense mesh path (mgm_tpu.parallel.shard.sharded_solve) is not
-    ported yet."""
-    raise NotImplementedError("sharded_solve: the dense mesh path is "
-                              "ROADMAP item 10a, not ported yet")
+def sharded_solve(mesh: RowMesh, cc, w8, lo, hi, s_lo, s_hi, gmin, *,
+                  p1: float, p2: float, ndir: int, mgm: int,
+                  use_fh: bool = False, use_weights: bool = False,
+                  per_pixel: bool = False, fix_overcount: bool = True):
+    """solver.mgm_solve over the mesh's row bands (mgm_tpu's
+    sharded_solve, shard.py:65-82): the recursion through halo.py (K5 on
+    each rank's bands), the S assembly, the overcount fix and the window
+    WTA on each rank's band of rows; S, disp and cost gathered on the
+    mesh's device.  Arguments and result as mgm_solve's (cc, w8 and the
+    windows on any device), each element bitwise mgm_solve's."""
+    from .halo import band_volumes, column_passes, cutter, solve_bands
+
+    N, H, W, L = cc.shape
+    fh_restrict = use_fh and per_pixel
+    bands = band_volumes(
+        mesh, H, W, cutter(cc), w8=w8 if use_weights else None,
+        lo=lo if fh_restrict else None, hi=hi if fh_restrict else None,
+        cols=column_passes(range(ndir)))
+    res = solve_bands(mesh, H, W, bands, lo, hi, s_lo, s_hi, gmin, p1=p1,
+                      p2=p2, ndir=ndir, mgm=mgm, use_fh=use_fh,
+                      use_weights=use_weights, fh_restrict=fh_restrict,
+                      fix_overcount=fix_overcount)
+    return tuple(mesh.gather_rows({k: r[i] for k, r in res.items()}, H)
+                 for i in range(3))
 
 
-def solve_tiled(*args, **kwargs):
-    """The dense mesh path (mgm_tpu.parallel.shard.solve_tiled) is not
-    ported yet."""
-    raise NotImplementedError("solve_tiled: the dense mesh path is "
-                              "ROADMAP item 10a, not ported yet")
+def solve_tiled(mesh: RowMesh, cc, w8=None, *, p1: float, p2: float,
+                ndir: int, mgm: int, use_fh: bool = False,
+                fix_overcount: bool = True):
+    """sharded_solve for full-window problems (labels 0..L-1 everywhere,
+    the mgm_o protocol; mgm_tpu's solve_tiled, shard.py:85-100): cc (N,
+    H, W, L), w8 (N, H, W, 8) or None.  Returns (disp, cost), (N, H, W)
+    on the mesh's device."""
+    N, H, W, L = cc.shape
+    i32 = dict(dtype=torch.int32, device=cc.device)
+    zeros = torch.zeros((N, H, W), **i32)
+    full = torch.full((N, H, W), L - 1, **i32)
+    _, disp, cost = sharded_solve(
+        mesh, cc, w8, zeros, full, zeros, full, torch.zeros((N,), **i32),
+        p1=p1, p2=p2, ndir=ndir, mgm=mgm, use_fh=use_fh,
+        use_weights=w8 is not None, fix_overcount=fix_overcount)
+    return disp, cost

@@ -22,7 +22,7 @@ from .ops.cost import window_mask
 
 def mgm_solve(cc, w8, lo, hi, s_lo, s_hi, gmin, *, p1: float, p2: float,
               ndir: int, mgm: int, use_fh: bool, use_weights: bool,
-              per_pixel: bool, fix_overcount: bool):
+              per_pixel: bool, fix_overcount: bool, hpad: int = 0):
     """Returns (S, disp, cost).
 
     cc: (N, H, W, L) dense cost volume (+inf outside [lo, hi] windows)
@@ -31,11 +31,23 @@ def mgm_solve(cc, w8, lo, hi, s_lo, s_hi, gmin, *, p1: float, p2: float,
     S: the post-overcount-fix aggregated volume (what refinement reads);
        cells outside the S windows hold +inf.
     disp: float disparities (label argmin + gmin); cost: the minima.
+    hpad: trailing fake image rows (mesh padding; aggregate's hpad).
     """
+    # the sum is handed on unbound: assemble_wta drops it once it is read
+    return assemble_wta(
+        aggregate(cc, w8, lo, hi, p1=p1, p2=p2, ndir=ndir, mgm=mgm,
+                  use_fh=use_fh, use_weights=use_weights,
+                  fh_restrict=use_fh and per_pixel, hpad=hpad),
+        cc, lo, hi, s_lo, s_hi, gmin, ndir=ndir,
+        fix_overcount=fix_overcount)
+
+
+def assemble_wta(lsum, cc, lo, hi, s_lo, s_hi, gmin, *, ndir: int,
+                 fix_overcount: bool):
+    """mgm_solve after the recursion, on the summed passes `lsum` (any
+    rows of the image, cc and the windows alike): the S assembly, the
+    overcount fix and window_wta.  Returns (S, disp, cost)."""
     L = cc.shape[-1]
-    lsum = aggregate(cc, w8, lo, hi, p1=p1, p2=p2, ndir=ndir, mgm=mgm,
-                     use_fh=use_fh, use_weights=use_weights,
-                     fh_restrict=use_fh and per_pixel)
     in_cc = window_mask(lo, hi, L)
     in_s = window_mask(s_lo, s_hi, L)
     s_raw = torch.where(in_cc, lsum, 0.0)

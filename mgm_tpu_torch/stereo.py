@@ -21,13 +21,17 @@ solves again with the same recursion windows and tightened S
 windows, as the JAX loop does) and the TSGM_DEBUG energy audit.
 `compute_disparity_batch` solves K pairs of one shape in one launch
 set (K1's and K2's pair axis).  `compute_disparity(mesh=...)` shards
-the fused branch's recursion over the image rows of a
-parallel.RowMesh (K4, parallel/fused_shard.py): every rank runs the
-prep on the whole images, its band's recursion and the band's WTA (or
-S assembly), and the post stages run on the gathered maps, so every
-output is bitwise the unsharded run's.  The dense mesh path (NCC,
-ndir 16 under a mesh) is ROADMAP item 10a/10b.  Not ported: the wire
-packing and the OOM re-route (ROADMAP "Not ported").
+the recursion over the image rows of a parallel.RowMesh: the fused
+branch's through K4 (parallel/fused_shard.py, with the knight passes of
+ndir > 8 through K8 and K5 on a band), the dense branch's through K5 on
+a band (parallel/halo.py: each rank builds its bands' volumes from the
+whole images); every rank runs the prep on the whole images, its
+band's recursion and the band's WTA, S assembly and refinement, and
+the post stages run on the gathered maps, so every output is bitwise
+the unsharded run's.  Any H shards: the last ranks' bands may be short
+or empty, so no fake rows are padded (mgm_tpu pads them,
+mgm_tpu/stereo.py:698-700, and masks them out again).  Not ported: the
+wire packing and the OOM re-route (ROADMAP "Not ported").
 """
 from __future__ import annotations
 
@@ -156,21 +160,14 @@ def compute_disparity(u: np.ndarray, v: np.ndarray, cfg: MGMConfig, *,
     energy image to ENERGY_DUMP (/tmp/ENERGY_L1trunc.tif), as the
     reference does.  `mesh` (a parallel.RowMesh) shards the recursion
     over the image rows of its ranks, which then run on the mesh's
-    devices (`device` is not used); the fused branch only (not NCC,
-    ndir <= 8)."""
+    devices (`device` is not used): every cost family, ndir 1-16, per-
+    pixel windows, TSGM_ITER and TSGM_DEBUG."""
     u = np.asarray(u)
     v = np.asarray(v)
     if u.ndim != 3 or u.shape != v.shape:
         raise ValueError(f"u and v must be (H, W, C) of one shape, got "
                          f"{u.shape} and {v.shape}")
     if mesh is not None:
-        from .parallel.fused_shard import sharded_eligible
-
-        if not sharded_eligible(cfg.ndir, cfg.mgm, cfg.distance):
-            raise NotImplementedError(
-                f"compute_disparity(mesh=...): ndir {cfg.ndir}, "
-                f"{cfg.distance} needs the dense mesh path, ROADMAP item "
-                f"10a/10b, not ported yet")
         device = mesh.device
     out = _solve(u[None], v[None], cfg, device=device, dmin_img=dmin_img,
                  dmax_img=dmax_img, outputs=outputs, mesh=mesh)
@@ -205,7 +202,8 @@ def _solve(us: np.ndarray, vs: np.ndarray, cfg: MGMConfig, *, device,
     plane pair-major (pair k's side s is plane k * n_sides + s).  The
     entry points hand per-pixel windows, TSGM_ITER > 1, TSGM_DEBUG and
     NCC over one pair at a time; `mesh` shards the fused recursion of
-    one pair.  Returns (K, H, W) float32 arrays."""
+    one pair (its dense branch's too).  Returns (K, H, W) float32
+    arrays."""
     K, H, W, C = us.shape
     n_sides = 2 if cfg.test_lr else 1
     per_pixel = dmin_img is not None or dmax_img is not None
@@ -260,8 +258,18 @@ def _solve(us: np.ndarray, vs: np.ndarray, cfg: MGMConfig, *, device,
     u_p = torch.stack([_preprocess(a, cfg) for a in u_t])
     v_p = torch.stack([_preprocess(a, cfg) for a in v_t])
     dense = _dense(cfg)
-    cc = None
-    if dense:
+    cc = bands = None
+    if dense and mesh is not None:
+        from .parallel.halo import pair_bands, solve_bands
+
+        # each rank's band volumes, from the whole prepped images
+        bands = pair_bands(mesh, u_p[0], v_p[0], lo_idx, hi_idx, gmins,
+                           distance=cfg.distance, L=L,
+                           trunc_dist=cfg.trunc_dist,
+                           ncc_win=cfg.census_ncc_win, w8=w8,
+                           fh_restrict=cfg.use_trunc_linear and per_pixel,
+                           pids=range(cfg.ndir))
+    elif dense:
         # each side's volume written into its slice of the stack
         cc = torch.empty((K * n_sides, H, W, L), dtype=torch.float32,
                          device=dev)
@@ -274,7 +282,17 @@ def _solve(us: np.ndarray, vs: np.ndarray, cfg: MGMConfig, *, device,
 
     s_lo, s_hi = lo_idx, hi_idx
     for it in range(cfg.iterations):
-        if dense:
+        if bands is not None:
+            # S stays on each rank's band: {rank: (S, disp, cost)}
+            S = solve_bands(mesh, H, W, bands, lo_idx, hi_idx, s_lo, s_hi,
+                            gmin, p1=p1, p2=p2, ndir=cfg.ndir, mgm=cfg.mgm,
+                            use_fh=cfg.use_trunc_linear,
+                            use_weights=w8 is not None,
+                            fh_restrict=cfg.use_trunc_linear and per_pixel,
+                            fix_overcount=cfg.fix_overcount)
+            disp, cost = (mesh.gather_rows({k: r[i] for k, r in S.items()},
+                                           H) for i in (1, 2))
+        elif dense:
             S, disp, cost = mgm_solve(
                 cc, w8, lo_idx, hi_idx, s_lo, s_hi, gmin, p1=p1, p2=p2,
                 ndir=cfg.ndir, mgm=cfg.mgm, use_fh=cfg.use_trunc_linear,
@@ -296,7 +314,7 @@ def _solve(us: np.ndarray, vs: np.ndarray, cfg: MGMConfig, *, device,
         if cfg.debug:
             # the per-iteration energy audit (TSGM_DEBUG,
             # mgm_print_energy.h) on the left side's dense volume
-            cc0 = cc[0] if dense else build_cost_volume(
+            cc0 = cc[0] if cc is not None else build_cost_volume(
                 u_p[0], v_p[0], lo_idx[0], hi_idx[0], gmins[0],
                 distance=cfg.distance, L=L, trunc_dist=cfg.trunc_dist,
                 ncc_win=cfg.census_ncc_win)
@@ -304,7 +322,10 @@ def _solve(us: np.ndarray, vs: np.ndarray, cfg: MGMConfig, *, device,
                 disp[0], cc0, lo_idx[0], hi_idx[0], gmins[0], p1, p2,
                 dump_path=ENERGY_DUMP)
             del cc0
-        if cfg.refinement != "none":
+        if bands is not None and cfg.refinement != "none":
+            disp, cost = _mesh_refine(mesh, S, H, s_lo, s_hi, gmin,
+                                      method=cfg.refinement)
+        elif cfg.refinement != "none":
             # the fused branch hands the (N, H, 4, W) taps, not S
             refine = subpixel_refine if dense else subpixel_refine_taps
             disp, cost = refine(S, disp, cost, s_lo, s_hi, gmin,
@@ -312,7 +333,7 @@ def _solve(us: np.ndarray, vs: np.ndarray, cfg: MGMConfig, *, device,
         del S
         if it + 1 < cfg.iterations:
             flo_t, fhi_t, s_lo, s_hi = _tighten(disp, flo_t, fhi_t, gmin, L)
-    del cc, u_p, v_p, w8
+    del cc, bands, u_p, v_p, w8
 
     disp = disp_nolr = post.median_filter(disp, radius=cfg.median_radius)
     if n_sides == 2:
@@ -331,6 +352,23 @@ def _solve(us: np.ndarray, vs: np.ndarray, cfg: MGMConfig, *, device,
     if outputs is not None:
         out = {k: a for k, a in out.items() if k in outputs}
     return {k: a.cpu().numpy() for k, a in out.items()}
+
+
+def _mesh_refine(mesh, res: dict, H: int, s_lo, s_hi, gmin, *, method):
+    """Subpixel refinement of each rank's band (solve_bands' results),
+    the maps gathered: (disp, cost)."""
+    out = {}
+    mesh.join(into_ranks=True)   # after the gathers that read res
+    for k, (S, disp, cost) in res.items():
+        rows = slice(*mesh.rows(H, k))
+        dev = mesh.devices[k]
+        with mesh.on(k):
+            out[k] = subpixel_refine(S, disp, cost, s_lo[:, rows].to(dev),
+                                     s_hi[:, rows].to(dev), gmin.to(dev),
+                                     method=method)
+    mesh.join(into_ranks=False)
+    return tuple(mesh.gather_rows({k: r[i] for k, r in out.items()}, H)
+                 for i in range(2))
 
 
 def _leftright(disp, tau: float):

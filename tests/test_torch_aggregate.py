@@ -130,10 +130,27 @@ def test_group_plan_slopes():
 
 
 def test_aggregate_refuses_mesh_padding():
-    cc, _, lo, hi = make_problem(np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tagg.aggregate(_t(cc), None, _t(lo), _t(hi), p1=8.0, p2=32.0,
-                       ndir=4, mgm=2, hpad=1)
+    """Mesh padding rows (hpad, once refused): fake bottom rows shift each
+    pass's border (K5's row0 / col0 / c1), so the real rows equal the
+    unpadded image's bitwise, whatever the fake rows hold."""
+    _hpad_real_rows(4)
+
+
+def test_aggregate_mesh_padding_every_pass():
+    """As test_aggregate_refuses_mesh_padding at ndir 16: diagonal and
+    knight passes, each flip of row- and column-major scans."""
+    _hpad_real_rows(16)
+
+
+def _hpad_real_rows(ndir):
+    rng = np.random.default_rng(0)
+    cc, _, lo, hi = make_problem(rng)
+    pad = rng.uniform(0, 50, (cc.shape[0], 3) + cc.shape[2:]).astype(
+        np.float32)
+    got = tagg.aggregate(_t(np.concatenate([cc, pad], 1)), p1=8.0, p2=32.0,
+                         ndir=ndir, mgm=2, hpad=3)
+    want = tagg.aggregate(_t(cc), p1=8.0, p2=32.0, ndir=ndir, mgm=2)
+    assert_bitwise(got[:, :cc.shape[1]].numpy(), want.numpy())
 
 
 def _images(rng, H=10, W=16, C=3):

@@ -109,3 +109,21 @@ def test_k5_plan_refuses_a_launch_the_card_cannot_hold(held):
 def test_k5_plan_refuses_shapes_beyond_the_kernel(M, R, C, slope, L):
     with pytest.raises(ValueError, match="k5_plan"):
         wf.k5_plan(M, R, C, slope, L, H100_SMS)
+
+
+# K5 on a band: the band's rows, blocks of 64 fronts, the card shared by
+# the ranks on it (ncc_mesh2's bands: 250 of 500 rows, 350 of 700
+# columns; H = 9 over 4 ranks: 3 rows)
+@pytest.mark.parametrize("share", [1, 2, 4])
+@pytest.mark.parametrize("M,R,C,slope,L", [
+    (2, 250, 700, 1, 151), (2, 350, 500, 2, 151), (2, 3, 26, 2, 49),
+    (4, 167, 700, 1, 6)])
+def test_k5_band_plan(share, M, R, C, slope, L):
+    held = HELD // share
+    plan = wf.k5_plan(M, R, C, slope, L, H100_SMS // share,
+                      lambda w: held, G=64)
+    _check_plan(plan, M, R, C, L, held)
+    # the bands a block's fronts keep busy get a CTA each, where they fit
+    rw = 2 if L <= 48 else 1
+    busy = -(-M // rw) * (-(-(C + 64) // (slope * plan.warps)) + 2)
+    assert plan.ctas == min(busy, held, -(-M // rw) * -(-R // plan.warps))

@@ -1,5 +1,9 @@
-"""Row sharding of the port's fused branch (mgm_tpu_torch.parallel)
-against its unsharded run, and against mgm_tpu.
+"""Row sharding of the port's stereo pipeline (mgm_tpu_torch.parallel)
+against its unsharded run, and against mgm_tpu: the fused branch's
+recursion through K4 below, and the dense mesh path (NCC, the knight
+passes of ndir > 8: K5 on a band, parallel/halo.py, whose recursion
+tests/test_torch_halo.py holds) through the whole pipeline in
+test_pipeline_mesh_dense and test_mesh_refuses_the_dense_path.
 
 The sharded recursion is the plain version of K4
 (cuda_fused.fused_block_plain) stepped by parallel/fused_shard.py over
@@ -200,6 +204,24 @@ def test_tiled_runner_over_a_mesh(pair):
         assert_bitwise(got[k], want[k])
 
 
+def test_tiled_runner_over_a_mesh_dense():
+    """The tiled runner over 3 ranks with NCC (the dense mesh path tile by
+    tile): equal to its unsharded batch = 1 run."""
+    from mgm_tpu_torch.runner import tiled_disparity
+
+    rng = np.random.default_rng(9)
+    u = rng.uniform(0, 50, (H, W, 3)).astype(np.float32)
+    v = np.roll(u, 3, axis=1)
+    cfg = MGMConfig(**BASE, distance="ncc", ndir=8, mgm=2)
+    kw = dict(tile=16, margin=4)
+    want = tiled_disparity(u, v, cfg, batch=1, device="cpu", **kw)
+    got = tiled_disparity(u, v, cfg, mesh=make_mesh(devices=["cpu"] * 3),
+                          **kw)
+    assert got["tiles_solved"] == want["tiles_solved"] == 4
+    for k in ("disp", "cost"):
+        assert_bitwise(got[k], want[k])
+
+
 def test_pipeline_mesh_matches_mgm_tpu(monkeypatch):
     """cfg1's settings at TSGM 1 over 2 ranks against mgm_tpu's
     unsharded compute_disparity: bitwise in every key."""
@@ -218,23 +240,91 @@ def test_pipeline_mesh_matches_mgm_tpu(monkeypatch):
     _assert_same(got, want)
 
 
+# the configurations that the fused rows' runner leaves to the dense mesh
+# path (parallel/halo.py: K5 on a band): once refused, now each output
+# bitwise the unsharded run's
 @pytest.mark.parametrize("over", [dict(distance="ncc"), dict(ndir=16)],
                          ids=["ncc", "ndir16"])
 def test_mesh_refuses_the_dense_path(pair, over):
     cfg = MGMConfig(**BASE, **over)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10a"):
-        compute_disparity(*pair, cfg, mesh=make_mesh(devices=["cpu"] * 2))
+    want = compute_disparity(*pair, cfg, device="cpu")
+    got = compute_disparity(*pair, cfg, mesh=make_mesh(devices=["cpu"] * 2))
+    _assert_same(got, want)
 
 
 def test_mesh_shapes_and_refusals():
+    """The band of a rank, also where the last rank holds no row (9 rows
+    over 4 ranks: 3, 3, 3 and 0), and the dense entry points on such a
+    mesh (once stubs): equal to their unsharded counterparts."""
+    from mgm_tpu_torch.mrf import solve_mrf
+    from mgm_tpu_torch.parallel import sharded_solve, solve_tiled
+    from mgm_tpu_torch.solver import mgm_solve
+
     mesh = make_mesh(devices=["cpu"] * 4)
     assert (mesh.size, mesh.band(21), mesh.writes) == (4, 6, True)
-    with pytest.raises(ValueError, match="without a row"):
-        mesh.band(9)      # 3 rows a rank leave rank 3 none
-    from mgm_tpu_torch.parallel import sharded_solve, solve_tiled
-    for fn in (sharded_solve, solve_tiled):
-        with pytest.raises(NotImplementedError, match="item 10a"):
-            fn(mesh)
+    assert mesh.band(9) == 3
+    assert [mesh.rows(9, k) for k in range(4)] == [(0, 3), (3, 6), (6, 9),
+                                                   (9, 9)]
+    rng = np.random.default_rng(6)
+    unary = rng.uniform(0, 30, (9, 11, 5)).astype(np.float32)
+    cc = torch.from_numpy(unary)[None]
+    disp, _ = solve_tiled(mesh, cc, p1=8.0, p2=32.0, ndir=8, mgm=2)
+    assert_bitwise(disp[0].numpy(), solve_mrf(unary, device="cpu"))
+    zeros = torch.zeros((1, 9, 11), dtype=torch.int32)
+    args = (cc, None, zeros, zeros + 4, zeros, zeros + 4,
+            torch.zeros(1, dtype=torch.int32))
+    kw = dict(p1=8.0, p2=32.0, ndir=16, mgm=2, use_fh=False,
+              use_weights=False, per_pixel=False, fix_overcount=True)
+    for got, want in zip(sharded_solve(mesh, *args, **kw),
+                         mgm_solve(*args, **kw)):
+        assert_bitwise(got.numpy(), want.numpy())
+    # the fused rows' runner over the same mesh
+    u = rng.uniform(0, 50, (9, 30, 1)).astype(np.float32)
+    v = np.roll(u, 3, axis=1)
+    cfg = MGMConfig(**BASE, ndir=8, mgm=2)
+    _assert_same(compute_disparity(u, v, cfg, mesh=mesh),
+                 compute_disparity(u, v, cfg, device="cpu"))
+
+
+# the dense branch (NCC) and the leftover passes of ndir > 8 over the
+# mesh: ncc with windows and refinement, full_16dir (knight passes
+# through K8 volumes of each band), ndir 10 and 12, ncc at TSGM_ITER 2,
+# ncc with per-pixel windows and FH; H that does and does not divide n
+DENSE = {
+    "ncc_windows": (dict(distance="ncc", census_ncc_win=5, ndir=8, mgm=2,
+                         refinement="vfit", median_radius=1), 13, 2, False),
+    "ncc_divides": (dict(distance="ncc", ndir=8, mgm=2, refinement="vfit"),
+                    12, 4, False),
+    "full_16dir": (dict(ndir=16, mgm=4, distance="census",
+                        prefilter="census", use_trunc_linear=True,
+                        refinement="vfit"), 13, 3, False),
+    "ndir10": (dict(ndir=10, mgm=2), 9, 4, False),
+    "ndir12_fh": (dict(ndir=12, mgm=3, use_trunc_linear=True), 14, 4,
+                  False),
+    "ncc_iter2": (dict(distance="ncc", ndir=8, mgm=2, iterations=2,
+                       refinement="vfit"), 12, 3, False),
+    "ncc_per_pixel": (dict(distance="ncc", ndir=4, mgm=2,
+                           use_trunc_linear=True, refinement="vfit"), 13, 2,
+                      True),
+    "ndir16_per_pixel": (dict(ndir=16, mgm=2), 12, 3, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DENSE))
+def test_pipeline_mesh_dense(name):
+    over, rows, n, pp = DENSE[name]
+    cfg = MGMConfig(**BASE, **over)
+    rng = np.random.default_rng(8)
+    ch = 3 if cfg.distance == "ncc" else 1
+    u = rng.uniform(0, 50, (rows, 21, ch)).astype(np.float32)
+    v = np.roll(u, 3, axis=1) + rng.normal(0, 1, u.shape).astype(np.float32)
+    win = _windows(rows) if pp else {}
+    if pp:
+        win = {k: a[:, :21] for k, a in win.items()}
+    want = compute_disparity(u, v, cfg, device="cpu", **win)
+    got = compute_disparity(u, v, cfg, **win,
+                            mesh=make_mesh(devices=["cpu"] * n))
+    _assert_same(got, want)
 
 
 @pytest.fixture

@@ -410,6 +410,12 @@ def preset_run(request):
 
 
 def test_presets_match_mgm_tpu(preset_run):
+    """assert_matches_mgm_tpu on each preset's crop."""
+    _, cfg, want, got = preset_run
+    assert_matches_mgm_tpu(cfg, want, got)
+
+
+def assert_matches_mgm_tpu(cfg, want, got):
     """The fused and dense sums run in different orders, and mgm_tpu
     jits its refinement and prep, where XLA contracts a*b + c into one
     fused multiply-add (the fits' v2 + (x - 1)*slope, the blur's taps)
@@ -423,7 +429,6 @@ def test_presets_match_mgm_tpu(preset_run):
     + 1e-5 relative, as test_ncc_preset_matches_mgm_tpu).  At TSGM 1
     the disparities and backflow are bitwise equal and the costs
     within 1e-6 of the largest cost (the FMA)."""
-    name, cfg, want, got = preset_run
     assert sorted(got) == sorted(want) == sorted(KEYS)
     tsgm1 = cfg.mgm == 1
     for side in ("", "_right"):
@@ -451,5 +456,5 @@ def test_presets_match_mgm_tpu(preset_run):
     assert_bitwise(got["backflow"][same], want["backflow"][same])
     # the pair is solvable and, where the preset refines, subpixel
     fin = np.isfinite(got["disp"])
-    assert fin.mean() > 0.5, name
-    assert (got["disp"][fin] % 1 != 0).any(), name
+    assert fin.mean() > 0.5
+    assert (got["disp"][fin] % 1 != 0).any()
